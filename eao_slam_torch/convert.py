@@ -1,0 +1,74 @@
+"""State exchange with the reference package, through numpy.
+
+The reference's MapState and ChunkCarry cross as dicts of numpy arrays
+(field name -> array, the carry's map under "m"). Descriptors are
+[.., 8] uint32 there and int32 with the same bit pattern here; the
+boundary converts with ``.view``. Carry fields the port does not use
+(the object table and its key, the localization switch) are ignored on
+the way in and left out on the way out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from eao_slam_torch.runtime.map_state import MapState
+from eao_slam_torch.runtime.scan_tracker import ChunkCarry
+
+_DESC_FIELDS = ("kf_desc", "pt_desc", "last_desc")
+_HOST_SCALARS = ("state", "frames_since_kf", "ref_kf_tracked", "peak_since_kf",
+                 "kf_count", "pt_count", "frame_id")
+
+
+def _to_tensor(name: str, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if name in _DESC_FIELDS:
+        a = np.ascontiguousarray(a.astype(np.uint32)).view(np.int32)
+    elif a.dtype in (np.int64, np.uint32):
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    if name in _DESC_FIELDS:
+        a = np.ascontiguousarray(a).view(np.uint32)
+    return a
+
+
+def map_state_from_numpy(d: dict, device) -> MapState:
+    return MapState(**{f: _to_tensor(f, d[f], device) for f in MapState._fields})
+
+
+def map_state_to_numpy(m: MapState) -> dict:
+    return {f: _to_numpy(f, getattr(m, f)) for f in MapState._fields}
+
+
+def carry_from_numpy(d: dict, device) -> ChunkCarry:
+    kw = {}
+    for f in ChunkCarry._fields:
+        if f == "m":
+            kw[f] = map_state_from_numpy(d["m"], device)
+        elif f in _HOST_SCALARS:
+            kw[f] = int(np.asarray(d[f]))
+        elif f == "vel_ok":
+            kw[f] = bool(np.asarray(d[f]))
+        else:
+            kw[f] = _to_tensor(f, d[f], device)
+    return ChunkCarry(**kw)
+
+
+def carry_to_numpy(c: ChunkCarry) -> dict:
+    out = {}
+    for f in ChunkCarry._fields:
+        v = getattr(c, f)
+        if f == "m":
+            out[f] = map_state_to_numpy(v)
+        elif isinstance(v, torch.Tensor):
+            out[f] = _to_numpy(f, v)
+        else:
+            out[f] = np.asarray(v)
+    return out

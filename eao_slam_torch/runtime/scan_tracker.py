@@ -1,0 +1,599 @@
+"""Chunked tracking, geometry mode: C frames per dispatch.
+
+Per frame: motion-model matching + robust pose LM (reference-keyframe
+fallback), local-map matching + pose LM, the keyframe state machine and,
+on keyframe frames only, keyframe insertion, epipolar triangulation with
+the top covisible neighbours and map-point fusion. Once per chunk that
+inserted a keyframe: windowed Schur BA, point culling and post-BA fusion.
+
+The reference runs this as one ``lax.scan`` with a ``lax.cond`` keyframe
+branch; here it is an eager per-frame Python loop whose branches are
+decided on the host (two small readbacks per frame, one more per
+keyframe). Tensors stay on the tracker's device throughout.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from eao_slam_torch.config import SystemConfig, check_supported
+from eao_slam_torch.device import fp32_solvers, resolve_device
+from eao_slam_torch.geometry import se3
+from eao_slam_torch.geometry.camera import undistort_points
+from eao_slam_torch.ops.orb import extract_orb, scale_sigma2
+from eao_slam_torch.runtime import tracking_kernels as tk
+from eao_slam_torch.runtime.frame import Frame
+from eao_slam_torch.runtime.local_mapping import fuse_into_keyframe, triangulate_with_neighbor
+from eao_slam_torch.runtime.map_state import MapState
+from eao_slam_torch.runtime.tracker import MonoTracker
+from eao_slam_torch.solvers.ba import BAProblem, local_ba
+
+OK = 2
+LOST = 3
+
+
+class ChunkCarry(NamedTuple):
+    """State threaded from frame to frame and chunk to chunk. Tensors live
+    on the tracker's device; scalars are host values (the per-frame
+    branches read them on the host anyway)."""
+
+    m: MapState
+    T_last: torch.Tensor       # [3, 4]
+    velocity: torch.Tensor     # [3, 4] (identity when vel_ok is False)
+    vel_ok: bool
+    last_kp: torch.Tensor      # [F, 2]
+    last_desc: torch.Tensor    # [F, 8] int32
+    last_octave: torch.Tensor  # [F]
+    last_angle: torch.Tensor   # [F]
+    last_valid: torch.Tensor   # [F]
+    last_pt: torch.Tensor      # [F] int32
+    state: int
+    frames_since_kf: int
+    ref_kf_tracked: int
+    peak_since_kf: int
+    kf_count: int              # monotonic keyframe slot allocator
+    pt_count: int              # monotonic point slot allocator
+    frame_id: int
+
+
+class ChunkOutputs(NamedTuple):
+    T: np.ndarray          # [C, 3, 4]
+    state: np.ndarray      # [C]
+    n_inliers: np.ndarray  # [C]
+    is_kf: np.ndarray      # [C] bool
+    kf_count: np.ndarray   # [C] allocator counters after each frame
+    pt_count: np.ndarray   # [C]
+
+
+class FrameBatch(NamedTuple):
+    """Stacked front-end outputs of one chunk, [C, ...]."""
+
+    kp: torch.Tensor
+    desc: torch.Tensor
+    octave: torch.Tensor
+    angle: torch.Tensor
+    valid: torch.Tensor
+    timestamp: torch.Tensor  # [C]
+    active: Optional[torch.Tensor] = None  # [C] bool; None = all live
+
+
+# ---------------------------------------------------------------------------
+# scatter helpers with the reference's semantics
+# ---------------------------------------------------------------------------
+
+def set_rows_drop(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``arr.at[idx].set(val, mode="drop")`` for indices that are unique
+    within range; an index equal to len(arr) is dropped. Returns a new
+    tensor (no host sync: dropped rows land in a scratch row)."""
+    ext = torch.cat([arr, arr[:1]], 0)
+    ext[idx.long()] = val.to(arr.dtype) if torch.is_tensor(val) else val
+    return ext[: arr.shape[0]]
+
+
+def set_last_wins(arr: torch.Tensor, sorted_idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """``arr.at[sorted_idx].set(val)`` for SORTED indices with duplicates,
+    where the last update of each index wins, as XLA's CPU scatter applies
+    them. Deterministic on every device."""
+    last = torch.cat([sorted_idx[1:] != sorted_idx[:-1],
+                      torch.ones(1, dtype=torch.bool, device=sorted_idx.device)])
+    # scatter only the last occurrence of each index (all others go to a
+    # scratch row), so the written indices are unique
+    idx = torch.where(last, sorted_idx, arr.shape[0])
+    return set_rows_drop(arr, idx, val)
+
+
+# ---------------------------------------------------------------------------
+# keyframe branch pieces
+# ---------------------------------------------------------------------------
+
+def _insert_point_rows(m: MapState, slot: int, nb_slot, tri, pt_count: int,
+                       scale_factors: torch.Tensor):
+    """Scatter triangulated points into the point tables with the
+    monotonic allocator (overflow drops). Returns (m, new pt_count)."""
+    P = m.pt_pos.shape[0]
+    good = tri.good
+    rank = torch.cumsum(good.to(torch.int32), 0) - 1
+    dest = torch.where(good, pt_count + rank, P)
+    dest = torch.where(dest < P, dest, P).long()
+    placed = good & (dest < P)
+
+    X = tri.points
+    T1 = m.kf_pose[slot]
+    O1 = se3.trans(se3.inverse(T1))
+    view = X - O1[None, :]
+    dist = torch.linalg.norm(view, dim=-1)
+    oct1 = torch.clamp(m.kf_octave[slot], 0, scale_factors.shape[0] - 1).long()
+    max_d = dist * scale_factors[oct1]
+    min_d = max_d / scale_factors[-1]
+    normal = view / torch.clamp(dist, min=1e-9)[:, None]
+
+    m = m._replace(
+        pt_pos=set_rows_drop(m.pt_pos, dest, X),
+        pt_valid=set_rows_drop(m.pt_valid, dest, placed),
+        pt_desc=set_rows_drop(m.pt_desc, dest, m.kf_desc[slot]),
+        pt_normal=set_rows_drop(m.pt_normal, dest, normal),
+        pt_min_dist=set_rows_drop(m.pt_min_dist, dest, min_d),
+        pt_max_dist=set_rows_drop(m.pt_max_dist, dest, max_d),
+        pt_first_kf=set_rows_drop(m.pt_first_kf, dest,
+                                  torch.full_like(dest, slot, dtype=torch.int32)),
+    )
+    dest32 = dest.to(torch.int32)
+    row1 = torch.where(placed, dest32, m.kf_pt_idx[slot])
+    nb_row = tk.scatter_max(m.kf_pt_idx[nb_slot], tri.idx2, torch.where(placed, dest32, -1))
+    kf_pt_idx = m.kf_pt_idx.clone()
+    kf_pt_idx[slot] = row1
+    kf_pt_idx[nb_slot] = nb_row
+    return m._replace(kf_pt_idx=kf_pt_idx), pt_count + int(placed.sum())
+
+
+def _window_ba(cam, m: MapState, kf_count: int, W: int, Pl: int, scale2) -> MapState:
+    """Windowed BA over the last W keyframes (5 + 10 LM schedule, oldest
+    window keyframe fixed), compacting the window's points with a
+    sort-based unique and scattering the results back.
+
+    The local index of a point is taken from the last of its sorted
+    occurrences, as the reference's scatter applies it on XLA's CPU
+    backend: only points observed once in the window get a local index
+    (see ROADMAP.md Queue 3)."""
+    K, F = m.kf_pt_idx.shape
+    P = m.pt_pos.shape[0]
+    dev = m.pt_pos.device
+    first = max(kf_count - W, 0)
+    orders = first + torch.arange(W, device=dev)
+    win = torch.clamp(orders, 0, K - 1)
+    win_valid = orders < kf_count
+
+    kf_pt = m.kf_pt_idx[win]
+    obs_mask = (kf_pt >= 0) & m.kf_kp_valid[win] & win_valid[:, None]
+    pt_of_obs = torch.where(obs_mask, kf_pt, P)
+    flat = torch.sort(pt_of_obs.reshape(-1)).values
+    is_first = (flat < P) & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                       flat[1:] != flat[:-1]])
+    rank_sorted = torch.cumsum(is_first.to(torch.int32), 0) - 1
+    keep_rank = is_first & (rank_sorted < Pl)
+    remap = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
+    remap = set_last_wins(remap, flat, torch.where(keep_rank, rank_sorted, -1))
+    remap[P] = -1
+    local_pt = remap[torch.clamp(kf_pt, 0, P).long()]
+    obs_ok = obs_mask & (local_pt >= 0)
+
+    local2global = torch.full((Pl,), P, dtype=torch.int32, device=dev)
+    local2global = set_rows_drop(local2global, torch.where(keep_rank, rank_sorted, Pl),
+                                 torch.where(is_first, flat, P))
+    lp_valid = local2global < P
+    points0 = m.pt_pos[torch.clamp(local2global, 0, P - 1).long()]
+
+    inv_s2 = 1.0 / scale2[torch.clamp(m.kf_octave[win], 0, scale2.shape[0] - 1).long()]
+    kf_idx = torch.arange(W, device=dev)[:, None].expand(W, F)
+    prob = BAProblem(
+        poses=m.kf_pose[win],
+        points=points0,
+        kf_idx=kf_idx.reshape(-1),
+        pt_idx=torch.clamp(local_pt, 0, Pl - 1).reshape(-1).long(),
+        uv=m.kf_kp[win].reshape(-1, 2),
+        inv_sigma2=inv_s2.reshape(-1),
+        obs_valid=obs_ok.reshape(-1),
+        cam_fixed=torch.arange(W, device=dev) < 1,
+        cam_valid=win_valid,
+        pt_valid=lp_valid,
+    )
+    res = local_ba(cam, prob)
+    slot_or_drop = torch.where(win_valid, win, K)
+    kf_pose = set_rows_drop(m.kf_pose, slot_or_drop, res.poses)
+    pt_pos = set_rows_drop(m.pt_pos, local2global, res.points)
+    inl = res.obs_inlier.reshape(W, F)
+    new_rows = torch.where(obs_ok & ~inl, -1, kf_pt)
+    kf_pt_idx = set_rows_drop(m.kf_pt_idx, slot_or_drop, new_rows)
+    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, kf_pt_idx=kf_pt_idx)
+
+
+def _cull_points(m: MapState, newest_slot: int) -> MapState:
+    """MapPointCulling: points seen by fewer than 2 keyframes, other than
+    those created by the newest keyframe, die (mask flip only)."""
+    P = m.pt_pos.shape[0]
+    obs = (m.kf_pt_idx >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    counts = torch.zeros(P, dtype=torch.int32, device=m.pt_pos.device).index_add_(
+        0, torch.clamp(m.kf_pt_idx, 0, P - 1).reshape(-1).long(),
+        obs.reshape(-1).to(torch.int32))
+    stale = m.pt_valid & (counts < 2) & (m.pt_first_kf != newest_slot)
+    return m._replace(pt_valid=m.pt_valid & ~stale)
+
+
+# ---------------------------------------------------------------------------
+# chunk program
+# ---------------------------------------------------------------------------
+
+def make_chunk_step(cfg: SystemConfig):
+    """Per-frame step closed over the config: step(carry, frame, ts) ->
+    (carry, (T, state, n_inliers, is_kf, kf_count, pt_count))."""
+    check_supported(cfg)
+    cam = cfg.camera
+    tcfg = cfg.tracking
+    mcfg = cfg.mapping
+    n_tri_neighbors = min(8, mcfg.triangulation_neighbors)
+    ratio32 = np.float32(tcfg.kf_tracked_ratio)
+    scale2_by_device = {}
+
+    def kf_branch(m: MapState, kf_count, pt_count, frame: Frame, ts, frame_id, T, cur_pt,
+                  scale2, scale_factors):
+        K = m.kf_pose.shape[0]
+        P = m.pt_pos.shape[0]
+        dev = m.pt_pos.device
+        slot = min(kf_count, K - 1)
+        upd = dict(kf_pose=T, kf_valid=True, kf_timestamp=ts, kf_frame_id=frame_id,
+                   kf_kp=frame.kp, kf_desc=frame.desc, kf_octave=frame.octave,
+                   kf_angle=frame.angle, kf_kp_valid=frame.valid, kf_pt_idx=cur_pt,
+                   kf_by_object=False)
+        new = {}
+        for name, val in upd.items():
+            arr = getattr(m, name).clone()
+            arr[slot] = val
+            new[name] = arr
+        m = m._replace(**new)
+
+        # covisibility of the new keyframe against the last 8 keyframes
+        member = tk.scatter_max(torch.zeros(P, dtype=torch.bool, device=dev),
+                                torch.clamp(cur_pt, 0, P - 1), cur_pt >= 0)
+        n_recent = 8
+        rfirst = max(kf_count - n_recent, 0)
+        ro = rfirst + torch.arange(n_recent, device=dev)
+        recent = torch.clamp(ro, 0, K - 1)
+        rvalid = ro < kf_count
+        rows = m.kf_pt_idx[recent]
+        hits = member[torch.clamp(rows, 0, P - 1).long()] & (rows >= 0)
+        weights = hits.sum(1).to(torch.int32) * rvalid
+        order = torch.sort(-weights, stable=True).indices
+        for t in range(n_tri_neighbors):
+            nb = recent[order[t]]
+            w_nb = weights[order[t]]
+            tri = triangulate_with_neighbor(
+                cam, m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot],
+                m.kf_octave[slot], m.kf_kp_valid[slot], m.kf_pt_idx[slot],
+                m.kf_pose[nb], m.kf_kp[nb], m.kf_desc[nb],
+                m.kf_octave[nb], m.kf_kp_valid[nb], m.kf_pt_idx[nb], scale2,
+            )
+            use = (w_nb >= mcfg.min_covis_weight) & (nb != slot)
+            tri = tri._replace(good=tri.good & use)
+            m, pt_count = _insert_point_rows(m, slot, nb, tri, pt_count, scale_factors)
+
+        fused = fuse_into_keyframe(
+            cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist, m.pt_max_dist,
+            m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot], m.kf_octave[slot],
+            m.kf_kp_valid[slot], m.kf_pt_idx[slot], scale2,
+        )
+        kf_pt_idx = m.kf_pt_idx.clone()
+        kf_pt_idx[slot] = fused
+        m = m._replace(kf_pt_idx=kf_pt_idx)
+        return m, kf_count + 1, pt_count, T, fused
+
+    def step(carry: ChunkCarry, frame: Frame, ts: float):
+        m = carry.m
+        dev = m.pt_pos.device
+        K = m.kf_pose.shape[0]
+        if dev not in scale2_by_device:
+            s2 = scale_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor, dev)
+            scale2_by_device[dev] = (s2, torch.sqrt(s2))
+        scale2, scale_factors = scale2_by_device[dev]
+        frame_id = carry.frame_id + 1
+        kp, desc, octave, angle, valid = frame
+        ref = min(carry.kf_count - 1, K - 1)
+
+        def ref_kf():
+            return tk.track_reference_kf(
+                cam, m.pt_pos, m.pt_valid, carry.T_last,
+                m.kf_desc[ref], m.kf_kp_valid[ref], m.kf_pt_idx[ref],
+                kp, desc, octave, valid, scale2)
+
+        if carry.state == OK:
+            T_pred = se3.compose(carry.velocity, carry.T_last) if carry.vel_ok else carry.T_last
+            r1 = tk.track_motion_model(
+                cam, m.pt_pos, m.pt_valid, T_pred,
+                carry.last_kp, carry.last_desc, carry.last_octave,
+                carry.last_angle, carry.last_valid, carry.last_pt,
+                kp, desc, octave, angle, valid, scale2,
+                radius=cfg.matcher.search_radius_motion)
+            n1 = int(r1.n_inliers)
+            if n1 < tcfg.min_inliers_after_pose:
+                r1 = ref_kf()
+                n1 = int(r1.n_inliers)
+        else:   # LOST: retry against the reference keyframe from the last pose
+            r1 = ref_kf()
+            n1 = int(r1.n_inliers)
+        r2 = tk.track_local_map_step(
+            cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_normal,
+            m.pt_min_dist, m.pt_max_dist, r1.T, r1.cur_pt,
+            kp, desc, octave, valid, scale2, n_levels=cfg.orb.n_levels)
+        n2 = int(r2.n_inliers) if n1 >= tcfg.min_inliers_after_pose else 0
+        T, cur_pt = r2.T, r2.cur_pt
+        tracked = n2 >= tcfg.min_tracked_for_ok
+
+        # keyframe policy (Tracking::NeedNewKeyFrame)
+        frames_since = carry.frames_since_kf + 1
+        peak = max(carry.peak_since_kf, n2)
+        base = max(carry.ref_kf_tracked, peak, 1)
+        c1 = frames_since >= tcfg.max_frames_between_kf
+        c2 = n2 < ratio32 * np.float32(base)
+        need_kf = (tracked and (c1 or c2) and n2 > tcfg.min_matches_ref_kf
+                   and carry.kf_count < K)
+
+        kf_count, pt_count = carry.kf_count, carry.pt_count
+        if need_kf:
+            m, kf_count, pt_count, T, cur_pt = kf_branch(
+                m, kf_count, pt_count, frame, ts, frame_id, T, cur_pt,
+                scale2, scale_factors)
+        vel_ok = tracked and not need_kf and carry.state == OK
+        velocity = (se3.compose(T, se3.inverse(carry.T_last)) if vel_ok
+                    else torch.eye(3, 4, dtype=torch.float32, device=dev))
+        state = OK if tracked else LOST
+        new_carry = ChunkCarry(
+            m=m,
+            T_last=T if tracked else carry.T_last,
+            velocity=velocity, vel_ok=vel_ok,
+            last_kp=kp, last_desc=desc, last_octave=octave,
+            last_angle=angle, last_valid=valid,
+            last_pt=cur_pt if tracked else carry.last_pt,
+            state=state,
+            frames_since_kf=0 if need_kf else frames_since,
+            ref_kf_tracked=n2 if need_kf else carry.ref_kf_tracked,
+            peak_since_kf=n2 if need_kf else peak,
+            kf_count=kf_count, pt_count=pt_count, frame_id=frame_id,
+        )
+        return new_carry, (T, state, n2, need_kf, kf_count, pt_count)
+
+    return step
+
+
+def make_track_chunk(cfg: SystemConfig):
+    """track_chunk(carry, batch) -> (carry, ChunkOutputs): the per-frame
+    step over the chunk, then (iff a keyframe was inserted) the windowed
+    BA, point culling and post-BA fusion into the newest keyframe."""
+    step = make_chunk_step(cfg)
+    cam = cfg.camera
+    W = cfg.mapping.local_ba_kf_window
+    Pl = cfg.capacity.local_ba_points
+
+    def track_chunk(carry: ChunkCarry, batch: FrameBatch):
+        fp32_solvers()
+        C = batch.kp.shape[0]
+        active = (np.ones(C, bool) if batch.active is None
+                  else batch.active.cpu().numpy().astype(bool))
+        ts_host = batch.timestamp.cpu().numpy()
+        outs = []
+        for i in range(C):
+            if not active[i]:
+                outs.append((carry.T_last, carry.state, 0, False,
+                             carry.kf_count, carry.pt_count))
+                continue
+            frame = Frame(batch.kp[i], batch.desc[i], batch.octave[i],
+                          batch.angle[i], batch.valid[i])
+            carry, out = step(carry, frame, float(ts_host[i]))
+            outs.append(out)
+        is_kf = np.array([o[3] for o in outs], bool)
+        if is_kf.any():
+            m = carry.m
+            scale2 = scale_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor, m.pt_pos.device)
+            m = _window_ba(cam, m, carry.kf_count, W, Pl, scale2)
+            m = _cull_points(m, carry.kf_count - 1)
+            K = m.kf_pose.shape[0]
+            newest = min(max(carry.kf_count - 1, 0), K - 1)
+            if cfg.mapping.bidirectional_fuse:
+                fused = fuse_into_keyframe(
+                    cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist,
+                    m.pt_max_dist, m.kf_pose[newest], m.kf_kp[newest],
+                    m.kf_desc[newest], m.kf_octave[newest],
+                    m.kf_kp_valid[newest], m.kf_pt_idx[newest], scale2)
+                kf_pt_idx = m.kf_pt_idx.clone()
+                kf_pt_idx[newest] = fused
+                m = m._replace(kf_pt_idx=kf_pt_idx)
+            carry = carry._replace(m=m)
+        T = torch.stack([o[0] for o in outs]).cpu().numpy()
+        return carry, ChunkOutputs(
+            T=T,
+            state=np.array([o[1] for o in outs], np.int32),
+            n_inliers=np.array([o[2] for o in outs], np.int32),
+            is_kf=is_kf,
+            kf_count=np.array([o[4] for o in outs], np.int32),
+            pt_count=np.array([o[5] for o in outs], np.int32),
+        )
+
+    return track_chunk
+
+
+def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
+                  active=None) -> FrameBatch:
+    """ORB front end over a chunk of raw images [C, H, W] uint8 (one FAST
+    kernel launch per pyramid level for the whole chunk)."""
+    F = cfg.capacity.max_features
+    feats = extract_orb(
+        images_u8.to(torch.float32), n_features=F, n_levels=cfg.orb.n_levels,
+        scale_factor=cfg.orb.scale_factor,
+        threshold=float(cfg.orb.fast_threshold),
+        min_threshold=float(cfg.orb.fast_min_threshold),
+        border=cfg.orb.edge_threshold,
+    )
+    return FrameBatch(
+        kp=undistort_points(cfg.camera, feats.kp), desc=feats.desc,
+        octave=feats.octave, angle=feats.angle, valid=feats.valid,
+        timestamp=torch.as_tensor(np.asarray(timestamps, np.float32)),
+        active=active,
+    )
+
+
+def make_extract_track(cfg: SystemConfig, track_chunk):
+    """fn(carry, images_u8 [C, H, W], timestamps [C], active=None): raw
+    images of one chunk through ORB extraction and chunk tracking."""
+    def extract_track(carry, images_u8, timestamps, active=None):
+        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active))
+
+    return extract_track
+
+
+# ---------------------------------------------------------------------------
+# host wrapper
+# ---------------------------------------------------------------------------
+
+class ChunkedTracker:
+    """Bootstrap through MonoTracker, then chunked tracking with one
+    pose/state readback per chunk. Runs on ``cuda`` unless told otherwise."""
+
+    def __init__(self, cfg: SystemConfig, chunk: int = 32, device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.chunk = chunk
+        self.device = resolve_device(device)
+        fp32_solvers()
+        self.inner = MonoTracker(cfg, self.device)
+        self.carry: Optional[ChunkCarry] = None
+        self._track_chunk = make_track_chunk(cfg)
+        self._extract_track = make_extract_track(cfg, self._track_chunk)
+        self.records: list = []   # (timestamp, T 3x4 np or None, state)
+        self.kf_count_host = 0
+        self.pt_count_host = 0
+        self.state_host = LOST
+
+    # -- bootstrap ------------------------------------------------------
+
+    def bootstrap(self, frame: Frame, timestamp: float) -> bool:
+        """Feed frames one at a time until two-view init succeeds. Returns
+        True once the map exists and chunked mode is armed."""
+        T = self.inner.track(frame, timestamp)
+        self.records.append((timestamp, None if T is None else np.asarray(T),
+                             self.inner.state))
+        if self.inner.state == OK:
+            self._arm()
+            return True
+        return False
+
+    def _arm(self):
+        t = self.inner
+        F = self.cfg.capacity.max_features
+        lf = t.last_frame
+        self.carry = ChunkCarry(
+            m=t.map,
+            T_last=torch.as_tensor(np.asarray(t.last_T, np.float32), device=self.device),
+            velocity=torch.eye(3, 4, dtype=torch.float32, device=self.device),
+            vel_ok=False,
+            last_kp=lf.kp, last_desc=lf.desc, last_octave=lf.octave,
+            last_angle=lf.angle, last_valid=lf.valid,
+            last_pt=(t.last_pt.to(torch.int32) if t.last_pt is not None
+                     else torch.full((F,), -1, dtype=torch.int32, device=self.device)),
+            state=OK, frames_since_kf=0,
+            ref_kf_tracked=int(t.ref_kf_tracked), peak_since_kf=0,
+            kf_count=len(t.kf_slots), pt_count=int(t.n_points),
+            frame_id=int(t.frame_id),
+        )
+        self.kf_count_host = len(t.kf_slots)
+        self.pt_count_host = int(t.n_points)
+        self.state_host = OK
+
+    # -- chunked tracking ------------------------------------------------
+
+    def track_images(self, images_u8, timestamps) -> ChunkOutputs:
+        """Up to `chunk` raw grayscale images through ORB extraction and
+        chunk tracking. Short batches are padded with the last image and
+        masked inactive."""
+        if self.carry is None:
+            raise RuntimeError("call bootstrap() until it returns True")
+        C = self.chunk
+        imgs = np.asarray(images_u8)
+        n = int(imgs.shape[0])
+        if not 0 < n <= C:
+            raise ValueError(f"batch of {n} images vs chunk={C}")
+        ts = np.asarray(timestamps, np.float32)
+        active = None
+        if n < C:
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], C - n, 0)])
+            ts = np.concatenate([ts, np.repeat(ts[-1:], C - n)])
+            act = np.zeros((C,), bool)
+            act[:n] = True
+            active = torch.as_tensor(act)
+        self.carry, outs = self._extract_track(
+            self.carry, torch.as_tensor(imgs, device=self.device), ts, active)
+        self._record_chunk(outs, np.asarray(timestamps, np.float32))
+        self._maybe_maintain()
+        self._maybe_relocalize()
+        return outs
+
+    def _record_chunk(self, outs: ChunkOutputs, ts) -> ChunkOutputs:
+        """Record the live frames' poses and the host mirrors of the
+        allocators and the tracking state."""
+        for i in range(len(ts)):
+            ok = outs.state[i] == OK
+            self.records.append((float(ts[i]), outs.T[i] if ok else None, int(outs.state[i])))
+        last = len(ts) - 1
+        self.kf_count_host = int(outs.kf_count[last])
+        self.pt_count_host = int(outs.pt_count[last])
+        self.state_host = int(outs.state[last])
+        return outs
+
+    def _maybe_maintain(self):
+        """Between-chunk map maintenance is needed once the monotonic
+        allocators near capacity; the cull + compaction pass is not ported."""
+        K = self.cfg.capacity.max_keyframes
+        P = self.cfg.capacity.max_points
+        kf_headroom = max(8, self.chunk // 2)
+        pt_headroom = 3 * self.cfg.capacity.max_features
+        if self.kf_count_host <= K - kf_headroom and self.pt_count_host <= P - pt_headroom:
+            return
+        raise NotImplementedError(
+            f"map maintenance (keyframe/point cull + compaction) is not ported "
+            f"yet: ROADMAP.md Queue 1 item 11. Capacity headroom exhausted at "
+            f"{self.kf_count_host}/{K} keyframes, {self.pt_count_host}/{P} points")
+
+    def _maybe_relocalize(self):
+        if self.carry is None or self.state_host != LOST:
+            return
+        raise NotImplementedError(
+            "between-chunk relocalization (a chunk ended LOST) is not ported "
+            "yet: ROADMAP.md Queue 1 item 11")
+
+    # -- views and exports ------------------------------------------------
+
+    @property
+    def armed(self) -> bool:
+        return self.carry is not None
+
+    @property
+    def state(self) -> int:
+        return self.state_host if self.armed else self.inner.state
+
+    @property
+    def map(self) -> MapState:
+        return self.carry.m if self.armed else self.inner.map
+
+    def frame_trajectory(self):
+        recs = [(t, T) for t, T, s in self.records if T is not None]
+        ts = np.array([t for t, _ in recs])
+        Ts = np.stack([T for _, T in recs]) if recs else np.zeros((0, 3, 4))
+        return ts, Ts
+
+    def keyframe_trajectory(self):
+        m = self.map
+        kf_valid = m.kf_valid.cpu().numpy()
+        ts = m.kf_timestamp.cpu().numpy()[kf_valid]
+        Ts = m.kf_pose.cpu().numpy()[kf_valid]
+        order = np.argsort(ts)
+        return ts[order], Ts[order]

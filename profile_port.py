@@ -1,0 +1,112 @@
+"""Where one chunk's time goes in the port's main path, on one NVIDIA GPU.
+
+    python3 profile_port.py
+
+Same configuration and arc as chip_smoke.py (geometry mode, 640x480, 1024
+features, chunk 32, bench capacities, default seed). After the bootstrap
+and one warm-up chunk it times, on the host clock with a synchronise at
+each end, the next chunk's two stages separately: the ORB front end over
+the 32 images (``extract_batch``) and the tracking of the 32 frames with
+the chunk finalize (``track_chunk``). Then it traces one more chunk with
+``torch.profiler`` and reports the device's busy time (the sum of kernel
+times), its idle share of the chunk's wall time, the kernels that take the
+most device time, and the host-device synchronisations. Prints the card's
+name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device is available", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from eao_slam_torch.config import CapacityConfig, TrackingConfig, tum3_config
+    from eao_slam_torch.runtime.scan_tracker import extract_batch
+    from eao_slam_torch.system import System
+
+    ts, gt, images = chip_smoke.render_sequence()
+    card = chip_smoke.card_line()
+    C = chip_smoke.CHUNK
+    cfg = tum3_config().replace(
+        tracking=TrackingConfig(enable_loop_closing=False),
+        capacity=CapacityConfig(max_keyframes=128, max_points=8192,
+                                max_features=1024, local_ba_points=2048))
+    sysm = System(cfg, chunk=C)
+    tracker = sysm.tracker
+    i = 0
+    while not tracker.armed:
+        sysm.track_monocular(images[i], float(ts[i]))
+        i += 1
+    for _ in range(C):                       # warm-up chunk
+        sysm.track_monocular(images[i], float(ts[i]))
+        i += 1
+
+    def chunk_inputs(lo):
+        return (torch.as_tensor(images[lo:lo + C], device="cuda"),
+                np.asarray(ts[lo:lo + C], np.float32))
+
+    torch.cuda.synchronize()
+    imgs, tss = chunk_inputs(i)
+    t0 = time.perf_counter()
+    batch = extract_batch(cfg, imgs, tss)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tracker.carry, outs = tracker._track_chunk(tracker.carry, batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    i += C
+    stages_ms = {"extract_batch": (t1 - t0) * 1e3, "track_chunk": (t2 - t1) * 1e3,
+                 "keyframes_in_chunk": int(outs.is_kf.sum())}
+
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs, tss = chunk_inputs(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracker.carry, outs = tracker._extract_track(tracker.carry, imgs, tss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if getattr(e, "device_type", None) is not None
+           and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize",
+                                                     "cudaDeviceSynchronize"))
+    copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
+                                                        "cuLaunchKernel", "cudaLaunchKernelExC"))
+    summary = {
+        "card": card,
+        "stages_ms": stages_ms,
+        "traced_chunk": {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_launches": launches, "stream_syncs": syncs, "memcpy_calls": copies,
+            "keyframes_in_chunk": int(outs.is_kf.sum()),
+            "top_kernels_ms": [{"name": e.key[:90], "count": e.count,
+                                "ms": e.self_device_time_total / 1e3} for e in top],
+        },
+    }
+    print(card)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

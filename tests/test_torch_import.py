@@ -1,0 +1,97 @@
+"""The port stands alone: no JAX, no reference package, the card by default,
+and the unported modes refuse loudly."""
+
+import subprocess
+import sys
+import os
+
+import pytest
+import torch
+
+from eao_slam_torch.config import CapacityConfig, DemoFlag, TrackingConfig, tum3_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import eao_slam_torch\n"
+        "for m in pkgutil.walk_packages(eao_slam_torch.__path__, 'eao_slam_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k.startswith('eao_slam_tpu')]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _cfg(**kw):
+    return tum3_config().replace(
+        tracking=TrackingConfig(enable_loop_closing=False),
+        capacity=CapacityConfig(max_keyframes=8, max_points=64, max_features=32,
+                                local_ba_points=32), **kw)
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu():
+    from eao_slam_torch.system import System
+
+    if torch.cuda.is_available():
+        assert System(_cfg()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            System(_cfg())
+    assert System(_cfg(), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("case", ["flag", "loop_closing", "per_frame"])
+def test_unported_modes_raise(case):
+    from eao_slam_torch.system import System
+
+    if case == "flag":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            System(_cfg(flag=DemoFlag.EAO), device="cpu")
+    elif case == "loop_closing":
+        cfg = _cfg().replace(tracking=TrackingConfig(enable_loop_closing=True))
+        with pytest.raises(NotImplementedError, match="item 11"):
+            System(cfg, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            System(_cfg(), chunked=False, device="cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py alone in a directory cannot import the port and exits
+    non-zero without printing a result line."""
+    import shutil
+
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_config_matches_reference_fields_and_defaults():
+    """Every field the port's config keeps has the reference's name and
+    default, and the flags are the reference's."""
+    import dataclasses
+
+    from eao_slam_torch import config as tc
+    from eao_slam_tpu import config as jc
+
+    for name in ("OrbConfig", "MatcherConfig", "TrackingConfig", "MappingConfig",
+                 "CapacityConfig"):
+        ours = {f.name: f.default for f in dataclasses.fields(getattr(tc, name))}
+        ref = {f.name: f.default for f in dataclasses.fields(getattr(jc, name))}
+        for field, default in ours.items():
+            assert ref[field] == default, (name, field)
+    assert {f.value for f in tc.DemoFlag} == {f.value for f in jc.DemoFlag}
+    assert tc.tum3_config().seed == jc.tum3_config().seed
+    assert tc.tum3_config().camera == tuple(jc.tum3_config().camera)

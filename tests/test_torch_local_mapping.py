@@ -1,0 +1,82 @@
+"""Parity of local mapping (triangulation, fusion, the bootstrap's
+two-keyframe BA) with eao_slam_tpu.runtime.local_mapping.
+
+The inputs are the reference's bootstrapped map and the reference front
+end's next frame, tracked by the reference. Matching is integer work and
+compares exactly (the neighbour index per feature, the triangulation
+gate, the fused point per feature). Triangulated points come from a
+float32 SVD in another order: 1e-3 of the scene depth on points whose
+parallax passes the gate. The BA agrees as in test_torch_ba.py."""
+
+import numpy as np
+
+from eao_slam_tpu.geometry.camera import TUM3 as JCAM
+from eao_slam_tpu.ops.orb import scale_sigma2
+from eao_slam_tpu.runtime import local_mapping as jlm, tracking_kernels as jtk
+from eao_slam_torch.geometry.camera import TUM3 as TCAM
+from eao_slam_torch.convert import map_state_from_numpy
+from eao_slam_torch.runtime import local_mapping as tlm
+from torch_parity import jax_bootstrap, jax_carry_numpy, n, t
+
+
+def _tracked_frame():
+    """The first frame after the bootstrap, tracked by the reference against
+    its map: (tracker, frame, pose, feature -> point row, sigma^2)."""
+    tr, frames, _, _ = jax_bootstrap()
+    c, m, f = tr.carry, tr.carry.m, frames[0]
+    s2 = scale_sigma2(8, 1.2)
+    r1 = jtk.track_motion_model(JCAM, m.pt_pos, m.pt_valid, c.T_last, c.last_kp, c.last_desc,
+                                c.last_octave, c.last_angle, c.last_valid, c.last_pt,
+                                f.kp, f.desc, f.octave, f.angle, f.valid, s2)
+    r2 = jtk.track_local_map_step(JCAM, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_normal,
+                                  m.pt_min_dist, m.pt_max_dist, r1.T, r1.cur_pt, f.kp, f.desc,
+                                  f.octave, f.valid, s2)
+    assert int(r2.n_inliers) > 50
+    return tr, f, r2.T, r2.cur_pt, s2
+
+
+def test_triangulate_with_neighbor_parity():
+    tr, f, T, cur_pt, s2 = _tracked_frame()
+    m = tr.carry.m
+    nb = 0
+    args_j = (f.kp, f.desc, f.octave, f.valid, cur_pt,
+              m.kf_pose[nb], m.kf_kp[nb], m.kf_desc[nb], m.kf_octave[nb], m.kf_kp_valid[nb],
+              m.kf_pt_idx[nb], s2)
+    rj = jlm.triangulate_with_neighbor(JCAM, T, *args_j)
+    rt = tlm.triangulate_with_neighbor(TCAM, t(T), *[t(a) for a in args_j])
+    good = np.asarray(rj.good)
+    assert good.sum() > 10
+    np.testing.assert_array_equal(n(rt.idx2), np.asarray(rj.idx2))
+    np.testing.assert_array_equal(n(rt.good), good)
+    depth = np.abs(np.asarray(rj.points)[good]).max()
+    np.testing.assert_allclose(n(rt.points)[good], np.asarray(rj.points)[good],
+                               atol=1e-3 * depth)
+
+
+def test_fuse_into_keyframe_parity():
+    tr, f, T, cur_pt, s2 = _tracked_frame()
+    m = tr.carry.m
+    # forget a third of the tracked bindings so fusion has work to do
+    cur = np.asarray(cur_pt).copy()
+    cur[::3] = -1
+    args = (m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist, m.pt_max_dist, T,
+            f.kp, f.desc, f.octave, f.valid, cur, s2)
+    fj = np.asarray(jlm.fuse_into_keyframe(JCAM, *args))
+    ft = n(tlm.fuse_into_keyframe(TCAM, *[t(a) for a in args]))
+    assert (fj >= 0).sum() > (cur >= 0).sum()
+    np.testing.assert_array_equal(ft, fj)
+
+
+def test_run_local_ba_bootstrap_window():
+    tr = jax_bootstrap()[0]
+    m = tr.carry.m
+    mt = map_state_from_numpy(jax_carry_numpy(tr.carry)["m"], "cpu")
+    s2 = np.asarray(scale_sigma2(8, 1.2))
+    rj = jlm.run_local_ba(JCAM, m, [0, 1], [0], s2, 1024)
+    rt = tlm.run_local_ba(TCAM, mt, [0, 1], [0], s2, 1024)
+    np.testing.assert_array_equal(rt.kf_slots, rj.kf_slots)
+    np.testing.assert_array_equal(rt.pt_slots, rj.pt_slots)
+    np.testing.assert_allclose(n(rt.poses), rj.poses, atol=1e-3)
+    keep = rj.pt_slots >= 0
+    np.testing.assert_allclose(n(rt.points)[keep], rj.points[keep], atol=1e-3 * 5.0)
+    np.testing.assert_array_equal(rt.drop_obs, rj.drop_obs)

@@ -1,0 +1,160 @@
+"""The slice as a whole: chunked geometry-mode tracking in the port against
+eao_slam_tpu.runtime.scan_tracker, and the port's System from raw images.
+
+Whole-slice parity: the reference bootstraps once; its ChunkCarry crosses
+to the port through convert.py; the same front-end batch then runs one
+chunk through both ``make_track_chunk``s. Integer outputs (states,
+keyframe flags, inlier counts, allocator counters, the point tables'
+bindings and validity) are exact; poses agree to 1e-4 (rotation entries
+and map units); point positions to 1e-2 of the scene depth (new points
+come from a float32 SVD triangulation, summed in another order).
+
+Trouble spots named here:
+- scatters with duplicate indices: the window BA's point remap is a
+  ``.at[sorted ids].set`` with duplicates, whose last update wins on the
+  reference's CPU backend (only points observed once in the window get a
+  local index, ROADMAP.md Queue 3). The port reproduces that winner
+  deterministically on every device (``set_last_wins``) and matches it
+  exactly here;
+- top-k ties: the keyframe branch ranks covisible neighbours with a stable
+  sort, as ``jnp.argsort`` does.
+
+Over many frames the two packages drift apart the way the reference drifts
+from itself under float noise (ROADMAP.md Queue 3): the chunk is short on
+purpose, and the end-to-end run is held to the health gates of the
+repository's verify skill instead of to the reference's trajectory."""
+
+import numpy as np
+import pytest
+import torch
+
+from eao_slam_tpu.ops.orb import scale_sigma2 as jscale2
+from eao_slam_tpu.runtime import scan_tracker as jst
+from eao_slam_tpu.runtime.map_state import MapState as JMap
+from eao_slam_tpu.geometry.camera import TUM3 as JCAM
+from eao_slam_torch.convert import carry_from_numpy, carry_to_numpy, map_state_from_numpy, \
+    map_state_to_numpy
+from eao_slam_torch.geometry.camera import TUM3 as TCAM
+from eao_slam_torch.ops.orb import scale_sigma2
+from eao_slam_torch.runtime import scan_tracker as tst
+from torch_parity import jax_bootstrap, jax_carry_numpy, n, rendered_arc, t, torch_config
+
+
+def _jmap(d: dict) -> JMap:
+    import jax.numpy as jnp
+
+    return JMap(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def test_convert_round_trip():
+    tr = jax_bootstrap()[0]
+    d = jax_carry_numpy(tr.carry)
+    back = carry_to_numpy(carry_from_numpy(d, "cpu"))
+    assert back["m"].keys() == d["m"].keys()
+    for k, v in d["m"].items():
+        assert back["m"][k].dtype == v.dtype or v.dtype == np.int64, k
+        np.testing.assert_array_equal(back["m"][k], v, err_msg=k)
+    assert back["m"]["pt_desc"].dtype == np.uint32
+    for k in ("T_last", "last_kp", "last_desc", "last_pt", "kf_count", "pt_count", "state"):
+        np.testing.assert_array_equal(back[k], d[k], err_msg=k)
+
+
+def test_window_ba_and_cull_parity():
+    tr = jax_bootstrap()[0]
+    d = jax_carry_numpy(tr.carry)["m"]
+    kf_count = int(tr.carry.kf_count)
+    mj = jst._window_ba(JCAM, _jmap(d), kf_count, 16, 1024, jscale2(8, 1.2))
+    mt = tst._window_ba(TCAM, map_state_from_numpy(d, "cpu"), kf_count, 16, 1024,
+                        scale_sigma2(8, 1.2))
+    a = map_state_to_numpy(mt)
+    np.testing.assert_array_equal(a["kf_pt_idx"], np.asarray(mj.kf_pt_idx))
+    np.testing.assert_allclose(a["kf_pose"], np.asarray(mj.kf_pose), atol=1e-4)
+    np.testing.assert_allclose(a["pt_pos"], np.asarray(mj.pt_pos), atol=1e-3)
+
+    cj = jst._cull_points(mj, kf_count - 1)
+    ct = tst._cull_points(mt, kf_count - 1)
+    np.testing.assert_array_equal(n(ct.pt_valid), np.asarray(cj.pt_valid))
+
+
+def test_set_last_wins_semantics():
+    arr = torch.full((6,), -1, dtype=torch.int32)
+    idx = torch.tensor([0, 0, 1, 3, 3, 3, 6])            # sorted, duplicates, one out of range
+    val = torch.tensor([10, -1, 11, 13, 14, 15, 99], dtype=torch.int32)
+    out = tst.set_last_wins(torch.cat([arr, arr[:1]]), idx, val)[:6]
+    assert out.tolist() == [-1, 11, -1, 15, -1, -1]
+
+
+def test_one_chunk_parity():
+    from eao_slam_tpu.runtime.scan_tracker import batch_from_frames
+
+    tr, frames, ts, _ = jax_bootstrap()
+    batch_j = batch_from_frames(frames, ts)
+    cj, oj = tr._track_chunk(tr.carry, batch_j)
+
+    track = tst.make_track_chunk(torch_config())
+    batch_t = tst.FrameBatch(kp=t(batch_j.kp), desc=t(batch_j.desc), octave=t(batch_j.octave),
+                             angle=t(batch_j.angle), valid=t(batch_j.valid),
+                             timestamp=t(batch_j.timestamp))
+    ct, ot = track(carry_from_numpy(jax_carry_numpy(tr.carry), "cpu"), batch_t)
+
+    np.testing.assert_array_equal(ot.state, np.asarray(oj.state))
+    np.testing.assert_array_equal(ot.is_kf, np.asarray(oj.is_kf))
+    assert ot.is_kf.any()          # the keyframe branch and the chunk finalize both ran
+    np.testing.assert_array_equal(ot.n_inliers, np.asarray(oj.n_inliers))
+    np.testing.assert_array_equal(ot.kf_count, np.asarray(oj.kf_count))
+    np.testing.assert_array_equal(ot.pt_count, np.asarray(oj.pt_count))
+    np.testing.assert_allclose(ot.T, np.asarray(oj.T), atol=1e-4)
+
+    a, b = carry_to_numpy(ct), jax_carry_numpy(cj)
+    for k in ("kf_pt_idx", "kf_valid", "pt_valid", "pt_desc", "pt_first_kf"):
+        np.testing.assert_array_equal(a["m"][k], b["m"][k], err_msg=k)
+    np.testing.assert_allclose(a["m"]["kf_pose"], b["m"]["kf_pose"], atol=1e-4)
+    depth = np.abs(b["m"]["pt_pos"][b["m"]["pt_valid"]]).max()
+    np.testing.assert_allclose(a["m"]["pt_pos"], b["m"]["pt_pos"], atol=1e-2 * depth)
+    for k in ("state", "kf_count", "pt_count", "frames_since_kf", "ref_kf_tracked",
+              "peak_since_kf", "frame_id", "vel_ok"):
+        assert int(a[k]) == int(b[k]), k
+
+
+def test_system_from_raw_images_meets_verify_gates():
+    """The port's System on the CPU from raw uint8 images: bootstrap,
+    chunks of 8 and the partial tail chunk. The verify skill's health gates
+    for the chunked path: armed, state OK at the end, >= 90 % of frames
+    tracked, sim3 ATE < 10 cm on the 45-degree arc (the reference measures
+    9.98 cm on this arc and configuration, the port 8.0 cm)."""
+    from eao_slam_torch.io.trajectory import ate_rmse
+    from eao_slam_torch.system import System
+
+    ts, gt, images = rendered_arc()
+    sysm = System(torch_config(), chunk=8, device="cpu")
+    for i, img in enumerate(images):
+        sysm.track_monocular(img, float(ts[i]))
+    sysm.shutdown(semidense=False)
+    assert sysm.tracker.armed
+    assert sysm.tracker.state == tst.OK
+    tt, Ts = sysm.frame_trajectory()
+    assert len(tt) >= 0.9 * len(images)
+    assert np.isfinite(Ts).all()
+    idx = np.searchsorted(ts.astype(np.float32), tt.astype(np.float32))
+
+    def centers(T):
+        return np.einsum("nij,ni->nj", -T[:, :3, :3], T[:, :3, 3])
+
+    ate = ate_rmse(centers(Ts), centers(gt[idx]), with_scale=True)
+    assert ate < 0.10, ate
+    kt, kT = sysm.keyframe_trajectory()
+    assert len(kt) >= 5 and np.all(np.diff(kt) > 0)
+
+
+@pytest.mark.parametrize("case", ["maintain", "relocalize"])
+def test_unported_between_chunk_passes_raise(case):
+    tracker = tst.ChunkedTracker(torch_config(), chunk=8, device="cpu")
+    tracker.carry = object()       # armed
+    if case == "maintain":
+        tracker.kf_count_host = tracker.cfg.capacity.max_keyframes - 1
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tracker._maybe_maintain()
+    else:
+        tracker.state_host = tst.LOST
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tracker._maybe_relocalize()

@@ -1,0 +1,101 @@
+"""Shared fixtures for the parity tests of the PyTorch port against the
+JAX package: the same numpy inputs go through both, on the CPU."""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+CPU = torch.device("cpu")
+
+
+def t(x, dtype=None) -> torch.Tensor:
+    """numpy / jax array -> CPU tensor (uint32 descriptors keep their bits
+    as int32)."""
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    out = torch.as_tensor(np.array(a))
+    return out if dtype is None else out.to(dtype)
+
+
+def n(x) -> np.ndarray:
+    """tensor / jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def desc_bits_differ(a, b) -> int:
+    """Number of differing bits between two [N, 8] 32-bit descriptor sets."""
+    x = np.bitwise_xor(np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32))
+    return int(np.unpackbits(x.view(np.uint8)).sum())
+
+
+@lru_cache(maxsize=None)
+def rendered_arc(n_frames: int = 36, sweep_deg: float = 45.0):
+    """The bench scene on a short arc, rendered once per process with the
+    port's renderer (tested byte-identical to the reference's)."""
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import make_arc_trajectory, make_room_scene, render_image
+
+    scene = make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
+    ts, gt = make_arc_trajectory(n_frames=n_frames, sweep_deg=sweep_deg)
+    images = np.stack([render_image(scene, TUM3, T) for T in gt])
+    return ts, gt, images
+
+
+def small_capacity_kw():
+    return dict(max_keyframes=64, max_points=4096, max_features=256, local_ba_points=1024)
+
+
+def jax_config():
+    from eao_slam_tpu.config import CapacityConfig, TrackingConfig, tum3_config
+
+    return tum3_config().replace(tracking=TrackingConfig(enable_loop_closing=False),
+                                 capacity=CapacityConfig(**small_capacity_kw()))
+
+
+def torch_config():
+    from eao_slam_torch.config import CapacityConfig, TrackingConfig, tum3_config
+
+    return tum3_config().replace(tracking=TrackingConfig(enable_loop_closing=False),
+                                 capacity=CapacityConfig(**small_capacity_kw()))
+
+
+def random_descriptors(rng: np.random.Generator, n_rows: int) -> np.ndarray:
+    return rng.integers(0, 2 ** 32, (n_rows, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def flip_bits(rng: np.random.Generator, desc: np.ndarray, p: float) -> np.ndarray:
+    bits = (rng.random(desc.shape + (32,)) < p)
+    mask = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    return desc ^ mask
+
+
+@lru_cache(maxsize=None)
+def jax_bootstrap(n_next: int = 8):
+    """The reference's chunked tracker bootstrapped on the rendered arc, and
+    the reference front end's Frames of the next ``n_next`` images. Returns
+    (tracker, frames, timestamps, first index after bootstrap)."""
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.runtime.scan_tracker import ChunkedTracker
+
+    ts, gt, images = rendered_arc()
+    cfg = jax_config()
+    tr = ChunkedTracker(cfg, chunk=n_next)
+    i = 0
+    while not tr.bootstrap(frame_from_image(cfg, images[i].astype(np.float32)), float(ts[i])):
+        i += 1
+    i += 1
+    frames = [frame_from_image(cfg, images[k].astype(np.float32)) for k in range(i, i + n_next)]
+    return tr, frames, ts[i:i + n_next], i
+
+
+def jax_carry_numpy(c) -> dict:
+    """A reference ChunkCarry as the dict of numpy arrays convert.py takes."""
+    d = {k: np.asarray(v) for k, v in c._asdict().items() if k not in ("m", "table", "obj_key")}
+    d["m"] = {k: np.asarray(v) for k, v in c.m._asdict().items()}
+    return d
