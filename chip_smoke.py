@@ -5,13 +5,16 @@
 Phases, in order; any failure exits non-zero:
   1. build every CUDA kernel of the main path from the sources in this
      checkout (nvcc, sm_90a);
-  2. hold each kernel against its plain PyTorch version at the shapes the
-     main path gives it (bit-exact), and time both with CUDA events;
+  2. hold both entries of the FAST kernel (the full packed map and the
+     per-cell maximum) against their plain PyTorch versions at the shapes
+     the main path gives them (bit-exact), one launch for all 8 levels and
+     one per level, on random, plateau and rendered levels of a chunk and
+     on one rendered frame's, and time both with CUDA events;
   3. drive the main path at full width through the port's System: geometry
      mode, 640x480, 1024 features, 8 levels, chunk 32, on the rendered
      60-degree arc; bootstrap, one warm-up chunk, four timed chunks. Checks
      tracked share >= 90 %, the sim3 ATE of the timed frames against ground
-     truth, and that every kernel was launched on that run;
+     truth, and that the kernel entry the path uses was launched on that run;
   4. the same run with six more RANSAC seeds: every run must track >= 90 %
      of its frames and stay under the ATE limit, and the median ATE must
      stay under the median limit. Both limits are 1.5 times the JAX
@@ -39,12 +42,22 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and the float32 vector rate,
-# the highest non-tensor-core operation rate the card lists
+# H100 SXM (NVIDIA data sheet): HBM rate and 132 SMs. Of integer compare,
+# minimum and maximum an SM starts 64 per clock (the toolkit's table of
+# arithmetic throughput for compute capability 9.0; tools/int_instr_rate.py
+# measures 61.7 for the two-lane 16-bit forms). The clock is the maximum SM
+# clock nvidia-smi reports.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-FAST_OPS_PER_PIXEL = 205   # 32 ring diffs, 2 x (64 min + 15 max), 8 NMS max, ~6 mask/pack
-FAST_BYTES_PER_PIXEL = 8   # one float32 read, one int32 written
+SMS = 132
+MINMAX_PER_SM_CLOCK = 64
+BYTES_PER_PIXEL = {"fast_nms_comb": 8.0,            # one float32 read, one int32 written
+                   "fast_nms_tile_max": 4.0 + 4.0 / 256}   # one int32 per 16 x 16 cell
+# Integer min/max the function needs per pair of output pixels, in the widest
+# form the card has (two 16-bit lanes, three inputs), whatever the tiling:
+# both sides' runs of 3 (32) and arcs of 9 (32), down the 16 arcs (16), the
+# larger side or 0 and the clamp (2), the 3x3 maximum across and down (2);
+# the tile-max entry also takes each packed value into its cell's maximum (2).
+MINMAX_PER_PAIR = {"fast_nms_comb": 84, "fast_nms_tile_max": 86}
 
 # sim3 ATE of the timed frames, JAX reference on the CPU over RANSAC seeds
 # 12345 (the default) and 1-19 (reference_ate_spread.py): worst 0.1863 m,
@@ -72,15 +85,19 @@ def _render(T_cw):
     return render_image(_SCENE, TUM3, T_cw)
 
 
-def render_sequence():
-    """The bench arc, rendered with the port's own synthetic renderer."""
+def render_sequence(n_frames: int = None):
+    """The bench arc (or its first n_frames), rendered with the port's own
+    synthetic renderer."""
     from eao_slam_torch.io.synthetic import make_arc_trajectory, make_room_scene
 
     scene = make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
     ts, gt = make_arc_trajectory(n_frames=N_FRAMES, sweep_deg=60.0)
+    ts, gt = ts[:n_frames], gt[:n_frames]
+    t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(
             min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(scene,)) as pool:
         images = np.stack(pool.map(_render, list(gt)))
+    print(f"rendered {len(images)} frames in {time.perf_counter() - t0:.1f} s")
     return ts, gt, images
 
 
@@ -106,40 +123,88 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_fast_nms(levels_hw, border: int) -> dict:
-    """Kernel vs plain version on random integer levels [CHUNK, h, w] at
-    every pyramid size; bit-exact or fail. Times are per chunk (all
-    levels), from CUDA events after warm-up."""
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def bound_ms(name: str, levels, clock_hz: float):
+    """The least time the card could take for this call: the bytes that must
+    move at the HBM rate, or the integer min/max the function needs at 64 per
+    SM per clock, whichever takes longer. Every pixel needs the same work,
+    so the count does not depend on the data.
+    Returns (ms, "bytes" or "operations")."""
+    px = sum(x.numel() for x in levels)
+    ops_s = px / 2 * MINMAX_PER_PAIR[name] / (MINMAX_PER_SM_CLOCK * SMS * clock_hz)
+    bytes_s = px * BYTES_PER_PIXEL[name] / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
+def check_fast_nms(inputs: dict, border: int, clock_hz: float) -> dict:
+    """Both kernel entries against their plain versions on every input set
+    (a tuple of [C, h, w] levels each): one launch for all levels and one
+    launch per level, bit-exact or fail. Times are per call (all levels, one
+    launch), from CUDA events after warm-up. Returns, per entry, the largest
+    difference seen and the figures on each input set."""
     import torch
 
     from eao_slam_torch.ops import fast_nms
 
+    entries = {
+        "fast_nms_comb": (fast_nms.fast_nms_comb, fast_nms.fast_nms_comb_reference),
+        "fast_nms_tile_max": (fast_nms.fast_nms_tile_max, fast_nms.fast_nms_tile_max_reference),
+    }
+    result = {}
+    for name, (kernel, plain) in entries.items():
+        r = result[name] = {"max_abs_err": 0, "by_input": {}}
+        for tag, levels in inputs.items():
+            got = kernel(levels, border)
+            torch.cuda.synchronize()
+            for x, g in zip(levels, got):
+                h, w = x.shape[-2:]
+                want = plain(x, border)
+                alone = kernel(x, border)
+                torch.cuda.synchronize()
+                for what, other in (("its plain version", want), ("its one-level launch", alone)):
+                    err = int((g.long() - other.long()).abs().max())
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    if err != 0 or g.shape != other.shape:
+                        raise AssertionError(
+                            f"{name} differs from {what} on {tag} levels at {h}x{w}: "
+                            f"{int((g != other).sum())} values, max |diff| {err}")
+            k = cuda_ms(lambda: kernel(levels, border))
+            per_level = [cuda_ms(lambda x=x: kernel(x, border)) for x in levels]
+            p = cuda_ms(lambda: [plain(x, border) for x in levels], warmup=1, iters=3)
+            b, by = bound_ms(name, levels, clock_hz)
+            print(f"{name} on {tag} levels, per call ({len(levels)} levels x {len(levels[0])} "
+                  f"frames): kernel {k:.4f} ms in one launch ({sum(per_level):.4f} ms as "
+                  f"{len(levels)} launches: {', '.join(f'{t:.4f}' for t in per_level)}), "
+                  f"plain {p:.4f} ms, bound {b:.4f} ms by {by}, max |diff| {r['max_abs_err']}")
+            r["by_input"][tag] = {"ms": k, "plain_ms": p, "bound_ms": b, "bound_by": by}
+    return result
+
+
+def kernel_inputs(images) -> dict:
+    """The level sets the kernel is held on: random levels with a coarsely
+    quantised half (plateaus exercise the >= tie rule of the NMS), and what
+    the main path gives it: the pyramid of CHUNK rendered frames of the arc
+    (a chunk) and of one rendered frame (a bootstrap frame)."""
+    import torch
+
+    from eao_slam_torch.ops.image import build_pyramid, level_sizes
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ms = plain_ms = bound_s = 0.0
-    max_err = 0
-    for h, w in levels_hw:
+    random = []
+    for h, w in level_sizes(images.shape[1], images.shape[2], 8, 1.2):
         x = torch.randint(0, 256, (CHUNK, h, w), generator=gen, device="cuda").float()
-        # a coarsely quantised half: plateaus exercise the >= tie rule of the NMS
         x[CHUNK // 2:] = torch.round(x[CHUNK // 2:] / 64) * 64
-        got = fast_nms.fast_nms_comb(x, border)
-        want = fast_nms.fast_nms_comb_reference(x, border)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            raise AssertionError(f"fast_nms_comb differs from its plain version at {h}x{w}: "
-                                 f"{int((got != want).sum())} pixels, max |diff| {err}")
-        max_err = max(max_err, err)
-        k = cuda_ms(lambda: fast_nms.fast_nms_comb(x, border))
-        p = cuda_ms(lambda: fast_nms.fast_nms_comb_reference(x, border), iters=5)
-        px = CHUNK * h * w
-        b = max(px * FAST_BYTES_PER_PIXEL / PEAK_BYTES_PER_S,
-                px * FAST_OPS_PER_PIXEL / PEAK_OPS_PER_S)
-        print(f"fast_nms_comb {CHUNK}x{h}x{w}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-              f"bound {b * 1e3:.4f} ms, bit-exact")
-        ms += k
-        plain_ms += p
-        bound_s += b
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "max_abs_err": max_err}
+        random.append(x)
+    frames = torch.as_tensor(images[8:8 + CHUNK], device="cuda").float()
+    rendered = tuple(x.contiguous() for x in build_pyramid(frames, 8, 1.2))
+    one_frame = tuple(x[:1].contiguous() for x in rendered)
+    return {"random": tuple(random), "rendered": rendered, "one rendered frame": one_frame}
 
 
 def run_main_path(ts, gt, images, seed: int) -> dict:
@@ -217,7 +282,6 @@ def main() -> int:
         import torch
 
         from eao_slam_torch.ops import fast_nms
-        from eao_slam_torch.ops.image import level_sizes
     except ImportError as exc:
         print(f"chip_smoke: the eao_slam_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -229,7 +293,9 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     ts, gt, images = render_sequence()
     card = card_line()
-    print(f"card: {card}")
+    clock_hz = sm_clock_hz()
+    print(f"card: {card}; SM clock for the bound {clock_hz / 1e6:.0f} MHz ({SMS} SMs: "
+          f"{SMS * MINMAX_PER_SM_CLOCK * clock_hz / 1e12:.2f} T integer min/max per second)")
 
     t0 = time.perf_counter()
     fast_nms.build(force=True)
@@ -237,16 +303,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k = check_fast_nms(level_sizes(480, 640, 8, 1.2), border=19)
-    print(f"fast_nms_comb per chunk (8 levels x {CHUNK} frames): kernel {k['ms']:.4f} ms, "
-          f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms")
+    checked = check_fast_nms(kernel_inputs(images), border=19, clock_hz=clock_hz)
 
     fast_nms.reset_launches()
     path = run_main_path(ts, gt, images, SEEDS[0])
-    launches = fast_nms.launches
-    print(f"main path: fast_nms_comb launches {launches}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched fast_nms_comb")
+    launches = dict(fast_nms.launches)
+    print(f"main path: launches {launches} (the main path takes the tile-max entry; "
+          f"fast_nms_comb, the same source's full-map entry, is launched by the checks only)")
+    if launches["fast_nms_tile_max"] <= 0:
+        raise AssertionError("the main path never launched fast_nms_tile_max")
     check_run(path)
 
     runs = [path]
@@ -259,20 +324,28 @@ def main() -> int:
     if not median_ate < MEDIAN_ATE_LIMIT_M:
         raise AssertionError(f"median sim3 ATE {median_ate:.4f} m >= {MEDIAN_ATE_LIMIT_M:.4f} m")
 
-    kernels = [{
-        "name": "fast_nms_comb",
-        "route": "cuda",
-        "source": "eao_slam_torch/csrc/fast_nms.cu",
-        "replaces": "eao_slam_tpu/ops/fast_pallas.py:89",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": "operations" if FAST_OPS_PER_PIXEL / PEAK_OPS_PER_S
-        > FAST_BYTES_PER_PIXEL / PEAK_BYTES_PER_S else "bytes",
-        "library_ms": None,
-    }]
+    # per kernel entry: the figures on the random levels (the input of the
+    # earlier measurements); the rendered levels' beside them. No single
+    # PyTorch call computes either function, so library_ms is null.
+    kernels = []
+    for name, r in checked.items():
+        first = r["by_input"]["random"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "eao_slam_torch/csrc/fast_nms.cu",
+            "replaces": "eao_slam_tpu/ops/fast_pallas.py:89",
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "rendered": r["by_input"]["rendered"],
+            "one_rendered_frame": r["by_input"]["one rendered frame"],
+            "sm_clock_mhz": clock_hz / 1e6,
+        })
     print(json.dumps({"main_path": {
         "fps": path["fps"], "tracked": path["tracked"], "total": path["total"],
         "ate_m": path["ate_m"], "median_ate_m": median_ate,

@@ -1,7 +1,8 @@
 """ORB feature extraction on batched tensors.
 
-Per pyramid level of a chunk ``[C, H, W]``: the dense FAST + NMS + packing
-kernel (ops/fast_nms.py), spatially uniform per-tile top-k selection, the
+One launch of the dense FAST + NMS + packing kernel with the per-tile
+maximum folded in (ops/fast_nms.py) covers all pyramid levels of a chunk;
+then per level ``[C, H, W]``: spatially uniform per-tile top-k selection, the
 intensity-centroid angle and continuously steered BRIEF from one raw
 37x37 patch per keypoint. Same algorithm and constants as the reference
 package's ops/orb.py; the BRIEF sampling table is regenerated from the same
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from eao_slam_torch.ops import image as image_ops
-from eao_slam_torch.ops.fast_nms import fast_nms_comb
+from eao_slam_torch.ops.fast_nms import fast_nms_tile_max, tile_max
 
 PATCH_R = 15          # IC_Angle / BRIEF support radius (HALF_PATCH_SIZE)
 PATCH = 2 * PATCH_R + 1
@@ -142,21 +143,23 @@ def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def select_from_comb(comb: torch.Tensor, n_out: int, threshold: float,
                      min_threshold: float, cell: int):
     """Spatially uniform top-n from packed ``score << 20 | idx`` maps
-    [C, h, w]: each cell x cell tile's maximum, then the global top-n of
-    the tile winners, strong corners first. Ties rank the lower tile index
-    first (a stable sort), as ``jax.lax.top_k`` does.
-
-    Returns (yx [C, n_out, 2] int32, resp [C, n_out] f32, valid [C, n_out])."""
+    [C, h, w]: each cell x cell tile's maximum (ops/fast_nms.tile_max), then
+    ``select_from_tile_max``."""
     C, h, w = comb.shape
     assert h * w < (1 << 20)
-    ph = (cell - h % cell) % cell
-    pw = (cell - w % cell) % cell
-    sp = torch.nn.functional.pad(comb, (0, pw, 0, ph))
-    H2, W2 = sp.shape[-2:]
-    th, tw = H2 // cell, W2 // cell
-    m = sp.reshape(C, th, cell, W2).amax(2)
-    m = m.reshape(C, th, tw, cell).amax(3).reshape(C, th * tw)
+    return select_from_tile_max(tile_max(comb, cell), w, n_out, threshold, min_threshold)
 
+
+def select_from_tile_max(m: torch.Tensor, w: int, n_out: int, threshold: float,
+                         min_threshold: float):
+    """The global top-n of the tile winners ``m`` [C, th, tw] (each tile's
+    maximum packed ``score << 20 | y * w + x`` of a level ``w`` wide), strong
+    corners first. Ties rank the lower tile index first (a stable sort), as
+    ``jax.lax.top_k`` does.
+
+    Returns (yx [C, n_out, 2] int32, resp [C, n_out] f32, valid [C, n_out])."""
+    C, th, tw = m.shape
+    m = m.reshape(C, th * tw)
     tile_score = (m >> 20).to(torch.float32)
     tile_pos = m & ((1 << 20) - 1)
     rank = torch.where(
@@ -269,10 +272,12 @@ def extract_orb(img: torch.Tensor, n_features: int = 1024, n_levels: int = 8,
     counts = per_level_counts(n_features, n_levels, scale_factor)
     C = levels[0].shape[0]
     out = {k: [] for k in Features._fields}
+    levels = tuple(lvl.contiguous() for lvl in levels)
+    tile_maxima = fast_nms_tile_max(levels, border=border, cell=cell)
     for l, lvl in enumerate(levels):
         n_l = counts[l]
-        comb = fast_nms_comb(lvl.contiguous(), border=border)
-        yx, resp, valid = select_from_comb(comb, n_l, threshold, min_threshold, cell)
+        yx, resp, valid = select_from_tile_max(tile_maxima[l], lvl.shape[-1], n_l,
+                                               threshold, min_threshold)
         ang, desc = _angles_and_descriptors(lvl, yx)
         scale = scale_factor ** l
         kp = torch.stack([yx[..., 1].float(), yx[..., 0].float()], -1) * scale

@@ -425,7 +425,7 @@ def make_track_chunk(cfg: SystemConfig):
 def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
                   active=None) -> FrameBatch:
     """ORB front end over a chunk of raw images [C, H, W] uint8 (one FAST
-    kernel launch per pyramid level for the whole chunk)."""
+    kernel launch for all pyramid levels of the whole chunk)."""
     F = cfg.capacity.max_features
     feats = extract_orb(
         images_u8.to(torch.float32), n_features=F, n_levels=cfg.orb.n_levels,

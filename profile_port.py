@@ -7,7 +7,10 @@ features, chunk 32, bench capacities, default seed). After the bootstrap
 and one warm-up chunk it times, on the host clock with a synchronise at
 each end, the next chunk's two stages separately: the ORB front end over
 the 32 images (``extract_batch``) and the tracking of the 32 frames with
-the chunk finalize (``track_chunk``). Then it traces one more chunk with
+the chunk finalize (``track_chunk``). It splits the front end's time by CUDA
+events into the pyramid, the FAST kernel, the keypoint selection, the patch
+gather with the BRIEF product, and the undistortion. Then it traces one
+more chunk with
 ``torch.profiler`` and reports the device's busy time (the sum of kernel
 times), its idle share of the chunk's wall time, the kernels that take the
 most device time, and the host-device synchronisations. Prints the card's
@@ -25,6 +28,49 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+
+
+def front_end_split(cfg, imgs, reps: int = 5) -> dict:
+    """The stages of ``extract_batch`` (ops/orb.extract_orb followed by the
+    undistortion) run one after another with a CUDA event between them;
+    median milliseconds over ``reps`` runs after one warm-up. A stage's time
+    runs from the end of the stage before it to the end of its own last
+    kernel, so it holds the gaps in which the device waits for the host."""
+    import torch
+
+    from eao_slam_torch.geometry.camera import undistort_points
+    from eao_slam_torch.ops import image as image_ops, orb
+    from eao_slam_torch.ops.fast_nms import fast_nms_tile_max
+
+    o = cfg.orb
+    counts = orb.per_level_counts(cfg.capacity.max_features, o.n_levels, o.scale_factor)
+    names = ("pyramid", "fast_kernel", "selection", "gather_and_brief", "assemble", "undistort")
+    runs = []
+    for _ in range(reps + 1):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        marks[0].record()
+        levels = tuple(l.contiguous() for l in image_ops.build_pyramid(
+            imgs.to(torch.float32), o.n_levels, o.scale_factor))
+        marks[1].record()
+        maxima = fast_nms_tile_max(levels, border=o.edge_threshold)
+        marks[2].record()
+        picked = [orb.select_from_tile_max(m, lvl.shape[-1], n_l, float(o.fast_threshold),
+                                           float(o.fast_min_threshold))
+                  for m, lvl, n_l in zip(maxima, levels, counts)]
+        marks[3].record()
+        described = [orb._angles_and_descriptors(lvl, yx) for lvl, (yx, _, _) in zip(levels, picked)]
+        marks[4].record()
+        kp = torch.cat([torch.stack([yx[..., 1].float(), yx[..., 0].float()], -1)
+                        * o.scale_factor ** l for l, (yx, _, _) in enumerate(picked)], 1)
+        desc = torch.cat([d for _, d in described], 1)
+        marks[5].record()
+        kp = undistort_points(cfg.camera, kp)
+        marks[6].record()
+        torch.cuda.synchronize()
+        assert desc.shape[:2] == kp.shape[:2]
+        runs.append([a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])])
+    med = np.median(np.asarray(runs[1:]), axis=0)
+    return {n: float(v) for n, v in zip(names, med)} | {"sum": float(med.sum())}
 
 
 def main() -> int:
@@ -71,6 +117,7 @@ def main() -> int:
     i += C
     stages_ms = {"extract_batch": (t1 - t0) * 1e3, "track_chunk": (t2 - t1) * 1e3,
                  "keyframes_in_chunk": int(outs.is_kf.sum())}
+    front_end_ms = front_end_split(cfg, imgs)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -94,6 +141,7 @@ def main() -> int:
     summary = {
         "card": card,
         "stages_ms": stages_ms,
+        "front_end_ms": front_end_ms,
         "traced_chunk": {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

@@ -57,6 +57,51 @@ def test_select_from_comb_ties():
         np.testing.assert_array_equal(n(vt[0]), np.asarray(vj))
 
 
+@pytest.mark.parametrize("hw", [(161, 214), (134, 179)])
+@pytest.mark.parametrize("n_out", [40, 200])
+def test_tile_max_then_select_equals_select_from_comb(hw, n_out):
+    """The tile-max entry composed with select_from_tile_max picks exactly
+    what the port's and the reference's select_from_comb pick from the full
+    map, at odd level sizes (ragged last row and column of cells)."""
+    from eao_slam_torch.ops import fast_nms
+
+    h, w = hw
+    rng = np.random.default_rng(h)
+    img = rng.integers(0, 256, (2, h, w)).astype(np.float32)
+    img[1] = np.round(img[1] / 64) * 64
+    x = t(img)
+    comb = fast_nms.fast_nms_comb_reference(x, 19)
+    split = torb.select_from_tile_max(fast_nms.fast_nms_tile_max_reference(x, 19, 16),
+                                      w, n_out, 20.0, 7.0)
+    whole = torb.select_from_comb(comb, n_out, 20.0, 7.0, 16)
+    for a, b in zip(split, whole):
+        np.testing.assert_array_equal(n(a), n(b))
+    for c in range(2):
+        ref = jorb.select_from_comb(jnp.asarray(n(comb[c])), n_out, 20.0, 7.0, 16)
+        for a, b in zip(split, ref):
+            np.testing.assert_array_equal(n(a[c]), np.asarray(b))
+
+
+def test_extract_orb_launch_shape_on_cpu():
+    """extract_orb asks for all levels' tile maxima in one call and builds no
+    full map: on the CPU that call goes to the plain version, level by level."""
+    from eao_slam_torch.ops import fast_nms
+
+    img = t(rendered_arc()[2][3].astype(np.float32))[None]
+    levels = torb.image_ops.build_pyramid(img, 8, 1.2)
+    maxima = fast_nms.fast_nms_tile_max(tuple(levels), 19, 16)
+    assert [tuple(m.shape) for m in maxima] == [
+        (1, -(-l.shape[-2] // 16), -(-l.shape[-1] // 16)) for l in levels]
+    f = torb.extract_orb(img, n_features=256)
+    counts = torb.per_level_counts(256, 8, 1.2)
+    at = 0
+    for l, m in enumerate(maxima):
+        yx, resp, valid = torb.select_from_tile_max(m, levels[l].shape[-1], counts[l], 20.0, 7.0)
+        np.testing.assert_array_equal(n(f.response[0, at:at + counts[l]]), n(resp[0]))
+        np.testing.assert_array_equal(n(f.valid[0, at:at + counts[l]]), n(valid[0]))
+        at += counts[l]
+
+
 @pytest.mark.parametrize("frame", [3, 20])
 def test_extract_orb_parity(frame):
     img = rendered_arc()[2][frame].astype(np.float32)
