@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero:
      the main path gives them (bit-exact), one launch for all 8 levels and
      one per level, on random, plateau and rendered levels of a chunk and
      on one rendered frame's, and time both with CUDA events;
-  3. drive the main path at full width through the port's System: geometry
-     mode, 640x480, 1024 features, 8 levels, chunk 32, on the rendered
-     60-degree arc; bootstrap, one warm-up chunk, four timed chunks. Checks
-     tracked share >= 90 %, the sim3 ATE of the timed frames against ground
-     truth, and that the kernel entry the path uses was launched on that run;
+  3. drive the main path at full width through the port's System with the
+     default configuration (loop closing on, so the between-chunk passes
+     run after every chunk): geometry mode, 640x480, 1024 features, 8
+     levels, chunk 32, on the rendered 60-degree arc; bootstrap, one
+     warm-up chunk, four timed chunks. Checks tracked share >= 90 %, the
+     sim3 ATE of the timed frames against ground truth, and that the kernel
+     entry the path uses was launched on that run;
   4. the same run with six more RANSAC seeds: every run must track >= 90 %
      of its frames and stay under the ATE limit, and the median ATE must
      stay under the median limit. Both limits are 1.5 times the JAX
@@ -22,7 +24,30 @@ Phases, in order; any failure exits non-zero:
      (reference_ate_spread.py, on the CPU): the tracker is chaotic, so one
      run's ATE is a draw from a spread, and the reference itself meets
      bench.py's 5 cm gate with two of the twenty seeds only;
-  5. print the card's name and power limit, one JSON line describing every
+  5. a long run on rendered frames at full width with the depth cut (48
+     keyframes, 6144 points): the arc forward, back and forward again (501
+     frames), a chunk of blank frames and a jump back to frames early in
+     the arc. Gates: maintenance runs at least twice, the keyframe count
+     stays inside capacity after every chunk, >= 85 % of the ping-pong
+     frames are tracked, and a between-chunk relocalization succeeds (if
+     the jump is recovered inside the chunk, the reference's own kidnap at
+     full width follows: LOST, a garbage pose, a real frame's features),
+     its camera centre within 0.10 m of ground truth after the sim3
+     alignment of the keyframe trajectory near it (the 8 keyframes nearest
+     in ground truth: after 500 frames the map has drifted, and one global
+     alignment measures that drift, not the relocalization; it is printed
+     too), and the two chunks after it track >= 90 % of their frames;
+  6. the loop circuit of bench.py through System.track_frame: the closed
+     room, 288 frames of a full orbit, simulated observations of 512
+     features, chunk 8, 128 keyframes and 8192 points; loop closing on,
+     then off. Gates (bench.py's): >= 1 loop closed and the loop run's
+     keyframe ATE < 0.7 x the no-loop run's;
+  7. checkpoint: the loop run again, saved at a chunk boundary half way,
+     loaded into a fresh System and finished: the trajectory must equal
+     the uninterrupted run's to 1e-5;
+  8. print the host-clock time of each between-chunk pass (after a
+     synchronise; medians where a pass repeats) and its share of a chunk,
+     the card's name and power limit, one JSON line describing every
      kernel, and last the JSON result line.
 
 Needs a CUDA device and the rest of the repository beside this file.
@@ -69,6 +94,20 @@ MEDIAN_ATE_LIMIT_M = 1.5 * 0.1363
 CHUNK = 32
 N_TIMED = 4
 N_FRAMES = 8 + CHUNK * (1 + N_TIMED)
+
+# long run: the depth cut so that maintenance runs (headroom 16 keyframes,
+# 3 x 1024 points); widths as on the main path
+LONG_CAPACITY = dict(max_keyframes=48, max_points=6144, max_features=1024,
+                     local_ba_points=2048)
+JUMP_TO = 8                  # the frame of the arc the kidnap jumps to
+RELOC_LIMIT_M = 0.10
+
+# bench.py's loop circuit (bench.py:333-368)
+CIRCUIT_FRAMES = 288
+CIRCUIT_CHUNK = 8
+CIRCUIT_CAPACITY = dict(max_keyframes=128, max_points=8192, max_features=512,
+                        local_ba_points=2048)
+CHECKPOINT_TOL = 1e-5
 
 _SCENE = None
 
@@ -207,23 +246,103 @@ def kernel_inputs(images) -> dict:
     return {"random": tuple(random), "rendered": rendered, "one rendered frame": one_frame}
 
 
+def centers(Ts):
+    return np.einsum("nij,ni->nj", -Ts[:, :3, :3], Ts[:, :3, 3])
+
+
+class PassTimer:
+    """Host-clock times, each between two synchronises, of a ChunkedTracker's
+    chunk tracking and of every between-chunk pass that did work: the
+    wrappers replace the tracker's methods on the instance (the package is
+    unchanged)."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self.times = {k: [] for k in ("chunk", "maintenance", "loop pass, closure",
+                                      "loop pass, no closure", "relocalization, success",
+                                      "relocalization, failed")}
+        for name in ("_extract_track", "_track_chunk"):
+            setattr(tracker, name, self._timed(getattr(tracker, name), self._chunk))
+        for name in ("_maybe_maintain", "_maybe_close_loops", "_maybe_relocalize"):
+            setattr(tracker, name, self._timed(getattr(tracker, name), getattr(self, name)))
+
+    def _timed(self, fn, classify):
+        import torch
+
+        def wrapped(*args, **kw):
+            before = self._snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            kind = classify(before)
+            if kind is not None:
+                self.times[kind].append(time.perf_counter() - t0)
+            return out
+
+        return wrapped
+
+    def _snapshot(self):
+        tr = self.tracker
+        lc = tr.loop_closer
+        return (tr.n_maintenance, tr._loop_checked, tr.kf_count_host,
+                lc.closed_loops if lc is not None else 0, tr.state_host, tr.n_relocalized)
+
+    def _chunk(self, before):
+        return "chunk"
+
+    def _maybe_maintain(self, before):
+        return "maintenance" if self.tracker.n_maintenance > before[0] else None
+
+    def _maybe_close_loops(self, before):
+        if self.tracker.loop_closer is None or before[2] <= before[1]:
+            return None        # no new keyframe: the pass returned at once
+        closed = self.tracker.loop_closer.closed_loops > before[3]
+        return "loop pass, closure" if closed else "loop pass, no closure"
+
+    def _maybe_relocalize(self, before):
+        if before[4] != 3:     # not LOST: the pass returned at once
+            return None
+        ok = self.tracker.n_relocalized > before[5]
+        return "relocalization, success" if ok else "relocalization, failed"
+
+    def summary(self) -> dict:
+        chunk = float(np.median(self.times["chunk"])) if self.times["chunk"] else None
+        out = {}
+        for kind, ts in self.times.items():
+            if ts:
+                med = float(np.median(ts))
+                out[kind] = {"n": len(ts), "median_s": med, "max_s": float(max(ts)),
+                             "share_of_chunk": (med / chunk) if kind != "chunk" else 1.0}
+        return out
+
+
+def print_passes(tag: str, timer: PassTimer) -> dict:
+    summ = timer.summary()
+    for kind, v in summ.items():
+        print(f"{tag}: {kind}: {v['n']} x, median {v['median_s'] * 1e3:.1f} ms "
+              f"(max {v['max_s'] * 1e3:.1f} ms), {100 * v['share_of_chunk']:.1f} % of a "
+              f"chunk's tracking")
+    return summ
+
+
 def run_main_path(ts, gt, images, seed: int) -> dict:
     """Bootstrap, warm-up and timed chunks through System.track_monocular
     with the given RANSAC seed. Returns the tracked frames, sim3 ATE and
     fps of the timed chunks."""
     import torch
 
-    from eao_slam_torch.config import CapacityConfig, TrackingConfig, tum3_config
+    from eao_slam_torch.config import CapacityConfig, tum3_config
     from eao_slam_torch.io.trajectory import ate_rmse
     from eao_slam_torch.system import System
 
     cfg = tum3_config().replace(
-        tracking=TrackingConfig(enable_loop_closing=False),
         capacity=CapacityConfig(max_keyframes=128, max_points=8192,
                                 max_features=1024, local_ba_points=2048),
         seed=seed,
     )
     sysm = System(cfg, chunk=CHUNK)
+    timer = PassTimer(sysm.tracker)
     assert sysm.device.type == "cuda"
     i = 0
     while i < len(images) and not sysm.tracker.armed:
@@ -256,16 +375,17 @@ def run_main_path(ts, gt, images, seed: int) -> dict:
     poses = np.stack([r[1] for r in recs if r[1] is not None])
     if not np.isfinite(poses).all():
         raise AssertionError("non-finite poses")
-    centers = lambda Ts: np.einsum("nij,ni->nj", -Ts[:, :3, :3], Ts[:, :3, 3])  # noqa: E731
     ate = ate_rmse(centers(poses), centers(gt[lo:i][ok]), with_scale=True)
     tracked = int(ok.sum())
     total = N_TIMED * CHUNK
     fps = total / dt
+    loops = sysm.tracker.loop_closer.closed_loops
     print(f"seed {seed}: bootstrap {n_boot} frames, {tracked}/{total} timed frames tracked, "
           f"sim3 ATE {ate:.4f} m, {fps:.2f} fps over {N_TIMED} timed chunks "
           f"({dt:.3f} s), keyframes {sysm.tracker.kf_count_host}, points "
-          f"{sysm.tracker.pt_count_host}")
-    return {"seed": seed, "fps": fps, "tracked": tracked, "total": total, "ate_m": ate}
+          f"{sysm.tracker.pt_count_host}, loops closed {loops}")
+    return {"seed": seed, "fps": fps, "tracked": tracked, "total": total, "ate_m": ate,
+            "loops": loops, "timer": timer}
 
 
 def check_run(run: dict) -> None:
@@ -275,6 +395,256 @@ def check_run(run: dict) -> None:
     if not run["ate_m"] < ATE_LIMIT_M:
         raise AssertionError(f"seed {run['seed']}: trajectory drifted: sim3 ATE "
                              f"{run['ate_m']:.4f} m >= {ATE_LIMIT_M:.4f} m")
+
+
+def _reloc_errors(tracker, gt_of_step, step, T_rec, n_local: int = 8):
+    """Distance of a relocalized camera centre from ground truth after a
+    sim3 alignment of the keyframe trajectory onto ground truth (keyframe
+    timestamps are step / 30): aligned on every keyframe, and on the
+    n_local keyframes nearest the relocalized frame in ground truth. Also
+    the keyframe trajectory's own sim3 ATE."""
+    from eao_slam_torch.io.trajectory import ate_rmse, umeyama_alignment
+
+    kts, kT = tracker.keyframe_trajectory()
+    steps = np.rint(np.asarray(kts) * 30.0).astype(int)
+    est = centers(np.asarray(kT))
+    ref = centers(np.stack([gt_of_step[s] for s in steps]))
+    c_rec = centers(T_rec[None])[0]
+    c_gt = centers(gt_of_step[step][None])[0]
+    near = np.argsort(np.linalg.norm(ref - c_gt, axis=1))[:n_local]
+    errs = []
+    for sel in (np.arange(len(est)), near):
+        s_, R_, t_ = umeyama_alignment(est[sel], ref[sel], with_scale=True)
+        errs.append(float(np.linalg.norm(s_ * R_ @ c_rec + t_ - c_gt)))
+    return errs[0], errs[1], float(ate_rmse(est, ref, with_scale=True)), len(est)
+
+
+def run_long(ts, gt, images) -> dict:
+    """Long run on rendered frames: the arc forward, back and forward, a
+    chunk of blank frames, a jump to frame JUMP_TO and two more chunks;
+    then, if no between-chunk relocalization happened, the reference's own
+    kidnap at full width on a frame from the middle of the arc."""
+    import torch
+
+    from eao_slam_torch.config import CapacityConfig, tum3_config
+    from eao_slam_torch.runtime.frame import frame_from_image
+    from eao_slam_torch.system import System
+
+    cfg = tum3_config().replace(capacity=CapacityConfig(**LONG_CAPACITY))
+    sysm = System(cfg, chunk=CHUNK)
+    tr = sysm.tracker
+    timer = PassTimer(tr)
+    K = cfg.capacity.max_keyframes
+    n = len(images)
+    order = list(range(n)) + list(range(n - 2, 0, -1)) + list(range(1, n))
+    blank = np.zeros_like(images[0])
+    stream = ([(i, images[i]) for i in order] + [(None, blank)] * CHUNK
+              + [(i, images[i]) for i in range(JUMP_TO, JUMP_TO + 3 * CHUNK)])
+    gt_of_step = []
+    events = []              # (step, recovered T_cw) of between-chunk relocalizations
+    kf_max = 0
+    t0 = time.perf_counter()
+
+    def feed(gi, img):
+        nonlocal kf_max
+        step = len(gt_of_step)
+        gt_of_step.append(None if gi is None else gt[gi])
+        n_rel = tr.n_relocalized
+        sysm.track_monocular(img, step / 30.0)
+        if sysm._armed and not sysm._img_buf:      # a chunk (or the bootstrap) ended
+            kf_max = max(kf_max, tr.kf_count_host)
+            if tr.kf_count_host > K:
+                raise AssertionError(f"keyframe count {tr.kf_count_host} over capacity {K}")
+            if tr.n_relocalized > n_rel:
+                events.append((step, tr.carry.T_last.cpu().numpy()))
+
+    for gi, img in stream:
+        feed(gi, img)
+    sysm.flush()
+    torch.cuda.synchronize()
+    n_pp = len(order)
+    states = np.array([r[2] for r in tr.records])
+    pp_tracked = float((states[:n_pp] == 2).mean())
+    jump_lo = n_pp + CHUNK
+    jump_states = states[jump_lo:jump_lo + CHUNK]
+    in_scan = bool(len(events) == 0 and (jump_states == 2).any())
+    natural = len(events)
+    print(f"long run: {len(stream)} frames ({n_pp} ping-pong, {CHUNK} blank, {3 * CHUNK} after "
+          f"the jump to frame {JUMP_TO}) in {time.perf_counter() - t0:.1f} s; maintenance "
+          f"{tr.n_maintenance} times, keyframes at most {kf_max}/{K}, points now "
+          f"{tr.pt_count_host}/{cfg.capacity.max_points}; ping-pong tracked "
+          f"{100 * pp_tracked:.1f} %; after the blank chunk: states of the jump chunk "
+          f"{''.join(str(int(s)) for s in jump_states)}, between-chunk relocalizations {natural}, "
+          f"in-scan reacquire {'yes' if in_scan else 'no'}")
+
+    explicit = None
+    if not events:
+        # the reference's kidnap (tests/test_scan_tracker.py:98) at full width
+        k = n // 2
+        fr = frame_from_image(cfg, images[k], sysm.device)
+        T_garbage = torch.eye(3, 4, device=sysm.device)
+        T_garbage[:, 3] = 5.0
+        tr.carry = tr.carry._replace(
+            state=3, T_last=T_garbage, last_kp=fr.kp, last_desc=fr.desc,
+            last_octave=fr.octave, last_angle=fr.angle, last_valid=fr.valid,
+            last_pt=torch.full_like(tr.carry.last_pt, -1))
+        tr.state_host = 3
+        step = len(gt_of_step)
+        gt_of_step.append(gt[k])
+        tr._maybe_relocalize()
+        if tr.state_host == 2:
+            events.append((step, tr.carry.T_last.cpu().numpy()))
+            tr.records.append((step / 30.0, events[-1][1], 2))
+        explicit = k
+        for gi in range(k + 1, k + 1 + 2 * CHUNK):
+            feed(gi, images[gi])
+        sysm.flush()
+        print(f"long run: no between-chunk relocalization on the natural kidnap; the "
+              f"reference's kidnap on frame {k}: {'recovered' if events else 'FAILED'}")
+    if not events:
+        raise AssertionError("no between-chunk relocalization succeeded")
+    step, T_rec = events[0]
+    err_all, err, kf_ate, n_kf = _reloc_errors(tr, gt_of_step, step, T_rec)
+    states = np.array([r[2] for r in tr.records])
+    after = states[-2 * CHUNK:]
+    after_tracked = float((after == 2).mean())
+    print(f"long run: relocalized at step {step}: camera centre {err:.4f} m from ground truth "
+          f"after the sim3 alignment of the 8 keyframes nearest it ({err_all:.4f} m after the "
+          f"alignment of all {n_kf} keyframes, whose own sim3 ATE is {kf_ate:.4f} m); the two "
+          f"chunks after it track {100 * after_tracked:.1f} %")
+    out = {"frames": len(gt_of_step), "n_maintenance": tr.n_maintenance, "kf_max": kf_max,
+           "kf_capacity": K, "pingpong_tracked": pp_tracked, "natural_relocalizations": natural,
+           "in_scan_reacquire": in_scan, "explicit_kidnap_frame": explicit,
+           "reloc_err_m": err, "reloc_err_all_kf_m": err_all, "kf_ate_m": kf_ate,
+           "after_tracked": after_tracked,
+           "passes": print_passes("long run", timer)}
+    if tr.n_maintenance < 2:
+        raise AssertionError(f"maintenance ran {tr.n_maintenance} times, expected >= 2")
+    if pp_tracked < 0.85:
+        raise AssertionError(f"long run tracked {100 * pp_tracked:.1f} % < 85 %")
+    if not err < RELOC_LIMIT_M:
+        raise AssertionError(f"relocalized centre {err:.4f} m >= {RELOC_LIMIT_M} m from truth")
+    if after_tracked < 0.9:
+        raise AssertionError(f"the two chunks after relocalizing tracked "
+                             f"{100 * after_tracked:.1f} % < 90 %")
+    return out
+
+
+def circuit_inputs():
+    """bench.py's loop circuit: the closed room, a full orbit, simulated
+    observations from default_rng(7), staged on the card."""
+    from eao_slam_torch.config import CapacityConfig, tum3_config
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import (
+        make_orbit_trajectory, make_room_scene, simulate_observations)
+    from eao_slam_torch.runtime.frame import frame_from_arrays
+
+    cfg = tum3_config().replace(capacity=CapacityConfig(**CIRCUIT_CAPACITY))
+    F = cfg.capacity.max_features
+    scene = make_room_scene(seed=5, n_landmarks=1200, n_objects=3, closed_room=True)
+    ts, gt = make_orbit_trajectory(n_frames=CIRCUIT_FRAMES, radius=2.2)
+    rng = np.random.default_rng(7)
+    frames = []
+    for i in range(CIRCUIT_FRAMES):
+        o = simulate_observations(scene, TUM3, gt[i], F, rng)
+        frames.append(frame_from_arrays(cfg, kp=o["kp"], desc=o["desc"], octave=o["octave"],
+                                        valid=o["valid"], device="cuda"))
+    return cfg, ts, gt, frames
+
+
+def drive_circuit(sysm, ts, frames, lo: int, hi: int) -> None:
+    for i in range(lo, hi):
+        sysm.track_frame(frames[i], float(ts[i]))
+
+
+def circuit_result(sysm, ts, gt, tag: str) -> dict:
+    from eao_slam_torch.io.trajectory import ate_rmse
+
+    et, eT = sysm.frame_trajectory()
+    idx = [int(np.argmin(np.abs(ts - t))) for t in et]
+    online = float(ate_rmse(centers(eT), centers(gt[idx]), with_scale=True))
+    kts, kT = sysm.keyframe_trajectory()
+    kidx = [int(np.argmin(np.abs(ts - t))) for t in kts]
+    kf = float(ate_rmse(centers(np.asarray(kT)), centers(gt[kidx]), with_scale=True))
+    lc = sysm.tracker.loop_closer
+    loops = lc.closed_loops if lc is not None else 0
+    print(f"circuit, {tag}: keyframe ATE {kf:.4f} m, online ATE {online:.4f} m, tracked "
+          f"{len(et)}/{CIRCUIT_FRAMES}, loops closed {loops}, keyframes "
+          f"{sysm.tracker.kf_count_host}, points {sysm.tracker.pt_count_host}, maintenance "
+          f"{sysm.tracker.n_maintenance}")
+    return {"kf_ate_m": kf, "online_ate_m": online, "tracked": len(et), "loops": loops}
+
+
+def run_circuit() -> dict:
+    """The loop circuit with loop closing on and off, then the checkpoint
+    resume of the loop run."""
+    import tempfile
+
+    import torch
+
+    from eao_slam_torch.system import System
+
+    cfg, ts, gt, frames = circuit_inputs()
+    out = {}
+    runs = {}
+    for loop_on in (True, False):
+        tag = "loop closing on" if loop_on else "loop closing off"
+        sysm = System(cfg, chunk=CIRCUIT_CHUNK)
+        if not loop_on:
+            sysm.tracker.loop_closer = None
+        timer = PassTimer(sysm.tracker)
+        t0 = time.perf_counter()
+        n_boot = 0
+        for i in range(CIRCUIT_FRAMES):
+            sysm.track_frame(frames[i], float(ts[i]))
+            n_boot += not sysm._armed
+        sysm.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not sysm.tracker.armed:
+            raise AssertionError("circuit bootstrap failed")
+        res = circuit_result(sysm, ts, gt, tag)
+        res["seconds"] = dt
+        res["passes"] = print_passes(f"circuit, {tag}", timer)
+        out["loop_on" if loop_on else "loop_off"] = res
+        runs[loop_on] = (sysm, n_boot)
+    on, off = out["loop_on"], out["loop_off"]
+    print(f"circuit: loop run {on['seconds']:.1f} s, no-loop run {off['seconds']:.1f} s; "
+          f"keyframe ATE {on['kf_ate_m']:.4f} m with loop closing against "
+          f"{off['kf_ate_m']:.4f} m without (ratio {on['kf_ate_m'] / off['kf_ate_m']:.3f})")
+    if on["loops"] < 1:
+        raise AssertionError("circuit closed no loop")
+    if not on["kf_ate_m"] < 0.7 * off["kf_ate_m"]:
+        raise AssertionError(f"loop closing margin lost: {on['kf_ate_m']:.4f} vs "
+                             f"{off['kf_ate_m']:.4f}")
+
+    # checkpoint: the loop run saved at a chunk boundary half way, resumed
+    solo, n_boot = runs[True]
+    half = n_boot + 1 + CIRCUIT_CHUNK * ((CIRCUIT_FRAMES // 2 - n_boot - 1) // CIRCUIT_CHUNK)
+    first = System(cfg, chunk=CIRCUIT_CHUNK)
+    drive_circuit(first, ts, frames, 0, half)
+    if first._frame_buf:
+        raise AssertionError("the checkpoint split is not at a chunk boundary")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "circuit.ckpt")
+        first.save_checkpoint(path)
+        size = os.path.getsize(path)
+        resumed = System(cfg, chunk=CIRCUIT_CHUNK)
+        resumed.load_checkpoint(path)
+    drive_circuit(resumed, ts, frames, half, CIRCUIT_FRAMES)
+    ts_a, T_a = solo.frame_trajectory()
+    ts_b, T_b = resumed.frame_trajectory()
+    same_ts = len(ts_a) == len(ts_b) and bool(np.array_equal(ts_a, ts_b))
+    diff = float(np.abs(T_a - T_b).max()) if same_ts else float("inf")
+    loops_b = resumed.tracker.loop_closer.closed_loops
+    print(f"checkpoint: saved after frame {half} ({size / 1e6:.1f} MB), resumed in a fresh "
+          f"System: {len(ts_b)} poses, max |T - T_uninterrupted| {diff:.3g}, loops closed "
+          f"{loops_b} (uninterrupted {on['loops']})")
+    out["checkpoint"] = {"split_frame": half, "bytes": size, "max_abs_diff": diff,
+                         "loops": loops_b}
+    if not diff <= CHECKPOINT_TOL:
+        raise AssertionError(f"resumed trajectory differs by {diff:.3g} > {CHECKPOINT_TOL}")
+    return out
 
 
 def main() -> int:
@@ -320,9 +690,17 @@ def main() -> int:
         check_run(runs[-1])
     median_ate = float(np.median([r["ate_m"] for r in runs]))
     print(f"sim3 ATE over RANSAC seeds {list(SEEDS)}: median {median_ate:.4f} m, "
-          f"worst {max(r['ate_m'] for r in runs):.4f} m")
+          f"worst {max(r['ate_m'] for r in runs):.4f} m; loops closed "
+          f"{[r['loops'] for r in runs]}")
     if not median_ate < MEDIAN_ATE_LIMIT_M:
         raise AssertionError(f"median sim3 ATE {median_ate:.4f} m >= {MEDIAN_ATE_LIMIT_M:.4f} m")
+    main_passes = print_passes("main path, default seed", path["timer"])
+
+    long_run = run_long(ts, gt, images)
+    circuit = run_circuit()
+    print(json.dumps({"between_chunk": {
+        "main_path_passes": main_passes, "long_run": long_run, "circuit": circuit,
+        "card": card}}))
 
     # per kernel entry: the figures on the random levels (the input of the
     # earlier measurements); the rendered levels' beside them. No single
@@ -349,7 +727,8 @@ def main() -> int:
     print(json.dumps({"main_path": {
         "fps": path["fps"], "tracked": path["tracked"], "total": path["total"],
         "ate_m": path["ate_m"], "median_ate_m": median_ate,
-        "ate_m_by_seed": {r["seed"]: r["ate_m"] for r in runs}, "card": card}}))
+        "ate_m_by_seed": {r["seed"]: r["ate_m"] for r in runs},
+        "loops_by_seed": {r["seed"]: r["loops"] for r in runs}, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,6 +55,7 @@ class MappingConfig:
     triangulation_neighbors: int = 2
     min_covis_weight: int = 10
     bidirectional_fuse: bool = True
+    kf_cull_redundancy: float = 0.9   # KeyFrameCulling's 90 % rule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +88,9 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
 
 
 def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
-    """The port covers geometry-mode chunked tracking without loop closing;
-    everything else names the ROADMAP.md item that will port it."""
+    """The port covers geometry-mode chunked tracking with its between-chunk
+    passes (maintenance, loop closing, relocalization); everything else
+    names the ROADMAP.md item that will port it."""
     if cfg.flag != DemoFlag.NONE:
         raise NotImplementedError(
             f"DemoFlag.{cfg.flag.name} is not ported yet: the EAO object layer "
@@ -97,7 +99,3 @@ def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
         raise NotImplementedError(
             "the interactive per-frame tracker (chunked=False) is not ported "
             "yet: ROADMAP.md Queue 1 item 13")
-    if cfg.tracking.enable_loop_closing:
-        raise NotImplementedError(
-            "loop closing is not ported yet: ROADMAP.md Queue 1 item 11; set "
-            "tracking.enable_loop_closing=False")

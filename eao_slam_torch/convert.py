@@ -5,7 +5,9 @@ The reference's MapState and ChunkCarry cross as dicts of numpy arrays
 [.., 8] uint32 there and int32 with the same bit pattern here; the
 boundary converts with ``.view``. Carry fields the port does not use
 (the object table and its key, the localization switch) are ignored on
-the way in and left out on the way out.
+the way in and left out on the way out. A LoopCloser's state crosses as a
+dict of its four attributes (signatures, consistency streaks, the last
+loop's order, the number of closed loops).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eao_slam_torch.config import SystemConfig
+from eao_slam_torch.runtime.loop_closing import LoopCloser
 from eao_slam_torch.runtime.map_state import MapState
 from eao_slam_torch.runtime.scan_tracker import ChunkCarry
 
@@ -72,3 +76,16 @@ def carry_to_numpy(c: ChunkCarry) -> dict:
         else:
             out[f] = np.asarray(v)
     return out
+
+
+def loop_closer_from_numpy(d: dict, cfg: SystemConfig) -> LoopCloser:
+    """A LoopCloser holding the given state: ``signatures``,
+    ``consistent_streak``, ``last_loop_order`` and ``closed_loops``, e.g.
+    read off a reference LoopCloser with ``getattr``."""
+    lc = LoopCloser(cfg)
+    lc.signatures = np.array(d["signatures"], np.float32)
+    lc.consistent_streak = {tuple(int(s) for s in g): int(n)
+                            for g, n in d["consistent_streak"].items()}
+    lc.last_loop_order = int(d["last_loop_order"])
+    lc.closed_loops = int(d["closed_loops"])
+    return lc

@@ -81,6 +81,21 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        -1,
+    )
+
+
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> (..., 4) wxyz with w >= 0 (largest-pivot selection)."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]

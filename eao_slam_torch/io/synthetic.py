@@ -1,10 +1,11 @@
 """Synthetic rendered sequences with exact ground truth (numpy only).
 
 A textured 3D room (walls, floor and cuboid objects as quads) rendered by
-ray-quad intersection, and a smooth fixating arc trajectory. These are the
-port's own copies of the reference package's generators: the same seeds
-give byte-identical images, so both packages can be driven, and compared,
-on the same sequence.
+ray-quad intersection, a smooth fixating arc and a full orbit about the
+room, and the ideal front-end output of a frame (feature-level simulation).
+These are the port's own copies of the reference package's generators: the
+same seeds give byte-identical images and observations, so both packages
+can be driven, and compared, on the same sequence.
 """
 
 from __future__ import annotations
@@ -204,6 +205,43 @@ def make_arc_trajectory(
     return ts, poses
 
 
+def make_orbit_trajectory(
+    n_frames: int,
+    radius: float = 2.2,
+    center=(0.0, 0.0, 3.0),
+    orbits: float = 1.0,
+    bob: float = 0.12,
+    fps: float = 30.0,
+):
+    """Camera on a horizontal circle about the room center, always
+    fixating it — the loop-closure benchmark trajectory (use with
+    make_room_scene(closed_room=True) so the background is textured from
+    every heading). This is make_arc_trajectory's proven fixating motion
+    extended to a full revolution: the camera starts near the front wall
+    looking at +z and sweeps the whole room.
+
+    After a revolution the camera re-observes its starting view with a
+    revolution's worth of accumulated mono drift; through the middle of
+    the orbit it views the scene from the opposite side against the
+    opposite wall, so the early keyframes drop out of the covisibility
+    graph — the precondition DetectLoop's covisible-exclusion gate needs
+    before it may propose a loop candidate (src/LoopClosing.cc:103-229).
+    (An outward-looking orbit variant was measured and rejected: with the
+    view tangent to the new-scene frontier, matchable map support falls
+    below the OK threshold ~40 degrees in at every tested profile.)
+    Returns (timestamps [N], T_cw [N, 3, 4])."""
+    center = np.asarray(center, np.float64)
+    ts = np.arange(n_frames, dtype=np.float64) / fps
+    th = np.linspace(0.0, 2.0 * np.pi * orbits, n_frames)
+    poses = np.zeros((n_frames, 3, 4))
+    for i in range(n_frames):
+        eye = center + np.array([radius * np.sin(th[i]),
+                                 bob * np.sin(5.0 * th[i]),
+                                 -radius * np.cos(th[i])])
+        poses[i] = look_at(eye, center)
+    return ts, poses
+
+
 # ---------------------------------------------------------------------------
 # image rendering (ray casting against quads)
 # ---------------------------------------------------------------------------
@@ -278,3 +316,57 @@ def render_image(scene: Scene, cam, T_cw: np.ndarray, supersample: int = 1,
             z = z.reshape(cam.height, supersample, cam.width, supersample).mean((1, 3))
         return out, z
     return out
+
+
+# ---------------------------------------------------------------------------
+# feature-level simulation
+# ---------------------------------------------------------------------------
+
+def simulate_observations(
+    scene: Scene,
+    cam,
+    T_cw: np.ndarray,
+    max_features: int,
+    rng: np.random.Generator,
+    pixel_noise: float = 0.5,
+    bit_flips: int = 8,
+    dropout: float = 0.05,
+):
+    """Ideal front-end output for one frame: padded keypoints, descriptors,
+    octaves, and the true landmark index per slot (for oracle checks).
+
+    Returns dict with kp [F,2] f32, desc [F,32] u8, octave [F] i32,
+    lm_idx [F] i32 (-1 pad), valid [F] bool.
+    """
+    R, t = T_cw[:3, :3], T_cw[:3, 3]
+    pc = scene.landmarks @ R.T + t
+    z = pc[:, 2]
+    uv = np.stack([cam.fx * pc[:, 0] / np.maximum(z, 1e-6) + cam.cx,
+                   cam.fy * pc[:, 1] / np.maximum(z, 1e-6) + cam.cy], -1)
+    vis = (z > 0.2) & (uv[:, 0] >= 8) & (uv[:, 0] < cam.width - 8) \
+        & (uv[:, 1] >= 8) & (uv[:, 1] < cam.height - 8)
+    vis &= rng.uniform(size=len(vis)) > dropout
+    idx = np.nonzero(vis)[0]
+    rng.shuffle(idx)
+    idx = idx[:max_features]
+
+    F = max_features
+    kp = np.zeros((F, 2), np.float32)
+    desc = np.zeros((F, 32), np.uint8)
+    octv = np.zeros((F,), np.int32)
+    lm_idx = np.full((F,), -1, np.int32)
+    valid = np.zeros((F,), bool)
+    n = len(idx)
+    kp[:n] = uv[idx] + rng.normal(0, pixel_noise, (n, 2))
+    d = scene.descriptors[idx].copy()
+    # flip a few random bits to emulate descriptor noise
+    for _ in range(bit_flips):
+        byte = rng.integers(0, 32, n)
+        bit = rng.integers(0, 8, n)
+        d[np.arange(n), byte] ^= (1 << bit).astype(np.uint8)
+    desc[:n] = d
+    # octave from depth: nearer -> finer (roughly what scale invariance does)
+    octv[:n] = np.clip((np.log(np.maximum(z[idx], 0.3) / 0.3) / np.log(1.2)).astype(int), 0, 7) % 8
+    lm_idx[:n] = idx
+    valid[:n] = True
+    return dict(kp=kp, desc=desc, octave=octv, lm_idx=lm_idx, valid=valid)

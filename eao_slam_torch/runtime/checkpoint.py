@@ -1,0 +1,121 @@
+"""Checkpoint and resume of the chunked tracker.
+
+The file is the reference package's chunked checkpoint format (version 2,
+``np.savez_compressed``): the whole ChunkCarry as ``m_*`` (map) and ``c_*``
+(carry) arrays, the loop closer's signatures as ``lc_signatures``, and a
+JSON blob of host state under ``chunked_meta``. A file the reference wrote
+loads here, so the loader also carries a reference run's state across
+(beside ``convert.py``). Arrays keep the reference's dtypes: descriptors
+are written as uint32.
+
+Where the port differs:
+- the loop RNG is a ``torch.Generator``; its state is saved in the array
+  ``loop_rng_state``. The reference's ``jax.random`` key (``loop_rng`` in
+  the meta) cannot seed it, so a file without ``loop_rng_state`` resumes
+  with a generator seeded afresh from the config, with a warning;
+- consistency-streak groups are written as Python ints: the reference
+  writes the members as they are and ``json.dumps`` fails on numpy
+  integers (``ROADMAP.md`` Queue 3);
+- the object table (``t_*``) and the retained keyframe images are not
+  part of geometry mode's state: they are neither written nor read.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from eao_slam_torch.convert import carry_from_numpy, carry_to_numpy
+from eao_slam_torch.runtime.scan_tracker import ChunkCarry
+
+CHUNKED_VERSION = 2
+
+
+def save_chunked_checkpoint(path: str, tracker) -> None:
+    """Serialize a ChunkedTracker mid-sequence: the carry, the trajectory
+    records, the loop closer's state and the loop RNG's state."""
+    c = tracker.carry
+    if c is None:
+        raise RuntimeError("nothing to checkpoint: the tracker is not armed")
+    d = carry_to_numpy(c)
+    arrays = {f"m_{k}": v for k, v in d.pop("m").items()}
+    arrays.update({f"c_{k}": v for k, v in d.items()})
+    arrays["loop_rng_state"] = tracker.loop_rng.get_state().numpy()
+    lc = tracker.loop_closer
+    if lc is not None:
+        arrays["lc_signatures"] = lc.signatures
+    meta = {
+        "version": CHUNKED_VERSION,
+        "flag": tracker.cfg.flag.value,
+        "chunk": tracker.chunk,
+        "records": [[float(t), None if T is None else np.asarray(T).tolist(), int(s)]
+                    for t, T, s in tracker.records],
+        "last_kf_slots": [[int(i), int(s)] for i, s in tracker.last_kf_slots],
+        "n_maintenance": int(tracker.n_maintenance),
+        "n_relocalized": int(tracker.n_relocalized),
+        "loop_checked": int(tracker._loop_checked),
+        "localization_only": bool(tracker._localization_only),
+        "lc_streaks": ([[[int(s) for s in g], int(n)] for g, n in lc.consistent_streak.items()]
+                       if lc is not None else []),
+        "lc_last_loop_order": int(lc.last_loop_order) if lc is not None else -999,
+        "lc_closed_loops": int(lc.closed_loops) if lc is not None else 0,
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, chunked_meta=json.dumps(meta), **arrays)
+    os.replace(tmp, path)
+
+
+def load_chunked_checkpoint(path: str, tracker) -> dict:
+    """Restore a chunked checkpoint (the port's or the reference's) into a
+    ChunkedTracker of the same capacities. Tracking resumes exactly where
+    the save left off: state, motion model and last-frame block included.
+    Returns the meta dict."""
+    data = np.load(path, allow_pickle=False)
+    if "chunked_meta" not in data:
+        raise ValueError("not a chunked checkpoint")
+    meta = json.loads(str(data["chunked_meta"]))
+    if meta["version"] != CHUNKED_VERSION:
+        raise ValueError(f"chunked checkpoint v{meta['version']} unsupported")
+    if meta["flag"] != tracker.cfg.flag.value:
+        raise ValueError(f"checkpoint flag {meta['flag']} != config {tracker.cfg.flag.value}")
+    if meta["localization_only"]:
+        raise NotImplementedError(
+            "the checkpoint was saved in localization mode, which is not ported "
+            "yet: ROADMAP.md Queue 1 item 13")
+    cap = tracker.cfg.capacity
+    expect = {"m_kf_pose": (cap.max_keyframes, 3, 4), "m_pt_pos": (cap.max_points, 3),
+              "c_last_kp": (cap.max_features, 2)}
+    for k, shape in expect.items():
+        if tuple(data[k].shape) != shape:
+            raise ValueError(f"checkpoint field {k} shape {data[k].shape} != capacity {shape}")
+
+    d = {k: data[f"c_{k}"] for k in ChunkCarry._fields if k != "m"}
+    d["m"] = {k[2:]: data[k] for k in data.files if k.startswith("m_")}
+    tracker.carry = carry_from_numpy(d, tracker.device)
+    tracker.kf_count_host = int(tracker.carry.kf_count)
+    tracker.pt_count_host = int(tracker.carry.pt_count)
+    tracker.state_host = int(tracker.carry.state)
+    tracker.records = [(t, None if T is None else np.asarray(T, np.float32), s)
+                       for t, T, s in meta["records"]]
+    tracker.last_kf_slots = [tuple(x) for x in meta["last_kf_slots"]]
+    tracker.n_maintenance = meta["n_maintenance"]
+    tracker.n_relocalized = meta.get("n_relocalized", 0)
+    tracker._loop_checked = meta["loop_checked"]
+    if "loop_rng_state" in data:
+        tracker.loop_rng.set_state(torch.as_tensor(data["loop_rng_state"]))
+    else:
+        tracker.loop_rng = torch.Generator().manual_seed(tracker.cfg.seed + 7)
+        warnings.warn("the checkpoint holds no torch generator state (a reference "
+                      "file): the loop RNG is seeded afresh from the config")
+    if tracker.loop_closer is not None and "lc_signatures" in data:
+        lc = tracker.loop_closer
+        lc.signatures = data["lc_signatures"].astype(np.float32)
+        lc.consistent_streak = {tuple(g): n for g, n in meta["lc_streaks"]}
+        lc.last_loop_order = meta["lc_last_loop_order"]
+        lc.closed_loops = meta["lc_closed_loops"]
+    return meta

@@ -5,6 +5,8 @@ fallback), local-map matching + pose LM, the keyframe state machine and,
 on keyframe frames only, keyframe insertion, epipolar triangulation with
 the top covisible neighbours and map-point fusion. Once per chunk that
 inserted a keyframe: windowed Schur BA, point culling and post-BA fusion.
+Between chunks, on the host: map maintenance (keyframe cull and slot
+compaction), loop closing and relocalization after a chunk that ends LOST.
 
 The reference runs this as one ``lax.scan`` with a ``lax.cond`` keyframe
 branch; here it is an eager per-frame Python loop whose branches are
@@ -23,13 +25,18 @@ from eao_slam_torch.config import SystemConfig, check_supported
 from eao_slam_torch.device import fp32_solvers, resolve_device
 from eao_slam_torch.geometry import se3
 from eao_slam_torch.geometry.camera import undistort_points
+from eao_slam_torch.ops import matching
 from eao_slam_torch.ops.orb import extract_orb, scale_sigma2
 from eao_slam_torch.runtime import tracking_kernels as tk
+from eao_slam_torch.runtime.compaction import covisibility, cull_and_compact
 from eao_slam_torch.runtime.frame import Frame
 from eao_slam_torch.runtime.local_mapping import fuse_into_keyframe, triangulate_with_neighbor
+from eao_slam_torch.runtime.loop_closing import LoopCloser, kf_signature, kf_signatures
 from eao_slam_torch.runtime.map_state import MapState
 from eao_slam_torch.runtime.tracker import MonoTracker
+from eao_slam_torch.runtime.tracking_kernels import set_last_wins, set_rows_drop
 from eao_slam_torch.solvers.ba import BAProblem, local_ba
+from eao_slam_torch.solvers.pnp import pnp_ransac
 
 OK = 2
 LOST = 3
@@ -78,31 +85,6 @@ class FrameBatch(NamedTuple):
     valid: torch.Tensor
     timestamp: torch.Tensor  # [C]
     active: Optional[torch.Tensor] = None  # [C] bool; None = all live
-
-
-# ---------------------------------------------------------------------------
-# scatter helpers with the reference's semantics
-# ---------------------------------------------------------------------------
-
-def set_rows_drop(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """``arr.at[idx].set(val, mode="drop")`` for indices that are unique
-    within range; an index equal to len(arr) is dropped. Returns a new
-    tensor (no host sync: dropped rows land in a scratch row)."""
-    ext = torch.cat([arr, arr[:1]], 0)
-    ext[idx.long()] = val.to(arr.dtype) if torch.is_tensor(val) else val
-    return ext[: arr.shape[0]]
-
-
-def set_last_wins(arr: torch.Tensor, sorted_idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """``arr.at[sorted_idx].set(val)`` for SORTED indices with duplicates,
-    where the last update of each index wins, as XLA's CPU scatter applies
-    them. Deterministic on every device."""
-    last = torch.cat([sorted_idx[1:] != sorted_idx[:-1],
-                      torch.ones(1, dtype=torch.bool, device=sorted_idx.device)])
-    # scatter only the last occurrence of each index (all others go to a
-    # scratch row), so the written indices are unique
-    idx = torch.where(last, sorted_idx, arr.shape[0])
-    return set_rows_drop(arr, idx, val)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +439,8 @@ def make_extract_track(cfg: SystemConfig, track_chunk):
 
 class ChunkedTracker:
     """Bootstrap through MonoTracker, then chunked tracking with one
-    pose/state readback per chunk. Runs on ``cuda`` unless told otherwise."""
+    pose/state readback per chunk and the between-chunk passes. Runs on
+    ``cuda`` unless told otherwise."""
 
     def __init__(self, cfg: SystemConfig, chunk: int = 32, device=None):
         check_supported(cfg)
@@ -470,9 +453,24 @@ class ChunkedTracker:
         self._track_chunk = make_track_chunk(cfg)
         self._extract_track = make_extract_track(cfg, self._track_chunk)
         self.records: list = []   # (timestamp, T 3x4 np or None, state)
+        self.n_maintenance = 0    # cull + compact passes run
+        self.n_relocalized = 0    # between-chunk relocalizations that succeeded
+        # host mirrors of the carry's allocators and state, fed by each
+        # chunk's readback, so the passes' early returns cost no sync
         self.kf_count_host = 0
         self.pt_count_host = 0
         self.state_host = LOST
+        self.last_kf_slots: list = []  # (chunk frame index, slot) of the last chunk
+        # called with (kf_remap, pt_remap) numpy arrays after every
+        # cull + compact pass, so host-side per-slot state survives it
+        self.compaction_listeners: list = []
+        self._localization_only = False   # localization mode: Queue 1 item 13
+        # loop closing at chunk rate; both RANSACs of the between-chunk
+        # passes draw from this generator (on the host, so a seed gives the
+        # same draws on every device)
+        self.loop_closer = LoopCloser(cfg) if cfg.tracking.enable_loop_closing else None
+        self.loop_rng = torch.Generator().manual_seed(cfg.seed + 7)
+        self._loop_checked = 0    # keyframes already run through detection
 
     # -- bootstrap ------------------------------------------------------
 
@@ -511,6 +509,19 @@ class ChunkedTracker:
 
     # -- chunked tracking ------------------------------------------------
 
+    def track_batch(self, batch: FrameBatch) -> ChunkOutputs:
+        """Track one chunk of pre-extracted frames (the feature-level
+        seam); partial chunks mark their live prefix in ``batch.active``."""
+        if self.carry is None:
+            raise RuntimeError("call bootstrap() until it returns True")
+        batch = FrameBatch(*(x.to(self.device) if torch.is_tensor(x) else x for x in batch))
+        kf_before = self.kf_count_host
+        self.carry, outs = self._track_chunk(self.carry, batch)
+        ts = batch.timestamp.cpu().numpy()
+        if batch.active is not None:
+            ts = ts[: int(batch.active.sum())]
+        return self._after_chunk(outs, ts, kf_before)
+
     def track_images(self, images_u8, timestamps) -> ChunkOutputs:
         """Up to `chunk` raw grayscale images through ORB extraction and
         chunk tracking. Short batches are padded with the last image and
@@ -530,45 +541,156 @@ class ChunkedTracker:
             act = np.zeros((C,), bool)
             act[:n] = True
             active = torch.as_tensor(act)
+        kf_before = self.kf_count_host
         self.carry, outs = self._extract_track(
             self.carry, torch.as_tensor(imgs, device=self.device), ts, active)
-        self._record_chunk(outs, np.asarray(timestamps, np.float32))
-        self._maybe_maintain()
-        self._maybe_relocalize()
+        return self._after_chunk(outs, np.asarray(timestamps, np.float32), kf_before)
+
+    def _after_chunk(self, outs: ChunkOutputs, ts, kf_before: int) -> ChunkOutputs:
+        self._record_chunk(outs, ts, kf_before)
+        self._between_chunk_passes()
         return outs
 
-    def _record_chunk(self, outs: ChunkOutputs, ts) -> ChunkOutputs:
-        """Record the live frames' poses and the host mirrors of the
-        allocators and the tracking state."""
+    def _record_chunk(self, outs: ChunkOutputs, ts, kf_before: int) -> ChunkOutputs:
+        """Record the live frames' poses, this chunk's keyframe slots (the
+        monotonic allocator: kf_before + running keyframe count) and the
+        host mirrors of the allocators and the tracking state."""
+        self.last_kf_slots = []
         for i in range(len(ts)):
             ok = outs.state[i] == OK
             self.records.append((float(ts[i]), outs.T[i] if ok else None, int(outs.state[i])))
+            if outs.is_kf[i]:
+                self.last_kf_slots.append((i, kf_before + len(self.last_kf_slots)))
         last = len(ts) - 1
         self.kf_count_host = int(outs.kf_count[last])
         self.pt_count_host = int(outs.pt_count[last])
         self.state_host = int(outs.state[last])
         return outs
 
+    def _between_chunk_passes(self):
+        self._maybe_maintain()
+        self._maybe_close_loops()
+        self._maybe_relocalize()
+
     def _maybe_maintain(self):
-        """Between-chunk map maintenance is needed once the monotonic
-        allocators near capacity; the cull + compaction pass is not ported."""
-        K = self.cfg.capacity.max_keyframes
-        P = self.cfg.capacity.max_points
+        """When the monotonic allocators near capacity (within max(8,
+        chunk / 2) keyframes or 3 x max_features points), cull redundant
+        keyframes and dead points and compact both tables, so long
+        sequences run at fixed capacity. Everything that holds a slot is
+        remapped: the carry's last_pt, last_kf_slots, the loop closer's
+        signatures and streaks, and the compaction listeners."""
+        if self._localization_only:
+            return
+        c = self.carry
+        K = c.m.kf_pose.shape[0]
+        P = c.m.pt_pos.shape[0]
         kf_headroom = max(8, self.chunk // 2)
         pt_headroom = 3 * self.cfg.capacity.max_features
-        if self.kf_count_host <= K - kf_headroom and self.pt_count_host <= P - pt_headroom:
+        if (self.kf_count_host <= K - kf_headroom
+                and self.pt_count_host <= P - pt_headroom):
             return
-        raise NotImplementedError(
-            f"map maintenance (keyframe/point cull + compaction) is not ported "
-            f"yet: ROADMAP.md Queue 1 item 11. Capacity headroom exhausted at "
-            f"{self.kf_count_host}/{K} keyframes, {self.pt_count_host}/{P} points")
+        res = cull_and_compact(c.m, c.kf_count, c.pt_count, n_levels=self.cfg.orb.n_levels,
+                               redundancy=self.cfg.mapping.kf_cull_redundancy)
+        last_pt = torch.where(c.last_pt >= 0,
+                              res.pt_remap[torch.clamp(c.last_pt, 0, P - 1).long()], -1)
+        self.carry = c._replace(m=res.m, kf_count=res.kf_count, pt_count=res.pt_count,
+                                last_pt=last_pt)
+        self.kf_count_host = res.kf_count
+        self.pt_count_host = res.pt_count
+        self.n_maintenance += 1
+        kf_remap = res.kf_remap.cpu().numpy()
+        pt_remap = res.pt_remap.cpu().numpy()
+        self.last_kf_slots = [(i, int(kf_remap[s])) for i, s in self.last_kf_slots
+                              if kf_remap[s] >= 0]
+        if self.loop_closer is not None:
+            self.loop_closer.remap_slots(kf_remap)
+            self._loop_checked = int((kf_remap[:self._loop_checked] >= 0).sum())
+        for cb in self.compaction_listeners:
+            cb(kf_remap, pt_remap)
 
     def _maybe_relocalize(self):
-        if self.carry is None or self.state_host != LOST:
+        """Tracking::Relocalization between chunks: if a chunk ends LOST,
+        score the last frame's descriptors against every keyframe's
+        signature, brute-match the best five candidates and recover the
+        pose with EPnP RANSAC; on success the carry re-arms in OK state.
+        (The in-scan LOST handler only retries the reference keyframe from
+        the last pose.)"""
+        c = self.carry
+        if c is None or self.state_host != LOST:
             return
-        raise NotImplementedError(
-            "between-chunk relocalization (a chunk ended LOST) is not ported "
-            "yet: ROADMAP.md Queue 1 item 11")
+        n = self.kf_count_host
+        if n == 0:
+            return
+        m = c.m
+        P = m.pt_pos.shape[0]
+        F = c.last_kp.shape[0]
+        n_lv = self.cfg.orb.n_levels
+        scale2 = scale_sigma2(n_lv, self.cfg.orb.scale_factor, self.device)
+        sig_q = kf_signature(c.last_desc, c.last_valid)
+        scores = (kf_signatures(m.kf_desc[:n], m.kf_kp_valid[:n]) @ sig_q).cpu().numpy()
+        scores[~m.kf_valid[:n].cpu().numpy()] = -1.0
+        for slot in np.argsort(-scores)[:5]:
+            slot = int(slot)
+            if scores[slot] <= 0:
+                break
+            pt_kf = m.kf_pt_idx[slot]
+            q_valid = m.kf_kp_valid[slot] & (pt_kf >= 0)
+            idx, _, ok = matching.search_brute(m.kf_desc[slot], q_valid, c.last_desc,
+                                               c.last_valid, max_dist=matching.TH_LOW,
+                                               ratio=0.75)
+            if int(ok.sum()) < 15:
+                continue
+            il = idx.long()
+            Xw = m.pt_pos[torch.clamp(pt_kf, 0, P - 1).long()]
+            inv_s2 = 1.0 / scale2[torch.clamp(c.last_octave[il], 0, n_lv - 1).long()]
+            pnp = pnp_ransac(self.cfg.camera, Xw, c.last_kp[il], ok, inv_s2,
+                             generator=self.loop_rng)
+            if not bool(pnp.success):
+                continue
+            keep = ok & pnp.inliers
+            last_pt = tk.scatter_max(torch.full((F,), -1, dtype=torch.int32, device=self.device),
+                                     il, torch.where(keep, pt_kf, -1))
+            self.carry = c._replace(
+                T_last=pnp.T.to(torch.float32),
+                velocity=torch.eye(3, 4, dtype=torch.float32, device=self.device),
+                vel_ok=False, last_pt=last_pt, state=OK)
+            self.state_host = OK
+            self.n_relocalized += 1
+            return
+
+    def _maybe_close_loops(self):
+        """Loop detection (+ correction on success) for every keyframe the
+        last chunk inserted, at chunk rate. The backlog's signatures come
+        back in one readback; on success the corrected map is written back
+        into the carry and the motion model rebases on the newest
+        keyframe's corrected pose."""
+        if self.loop_closer is None or self.carry is None:
+            return
+        n = self.kf_count_host
+        first = self._loop_checked
+        if n <= first:
+            return
+        view = _LoopView(self)
+        m = self.carry.m
+        sig_batch = kf_signatures(m.kf_desc[first:n], m.kf_kp_valid[first:n]).cpu().numpy()
+        closed = False
+        for order in range(first, n):
+            if self.loop_closer.on_keyframe(view, order, signature=sig_batch[order - first],
+                                            order=order):
+                closed = True
+        self._loop_checked = n
+        if closed:
+            newest = n - 1
+            kf_pt = torch.as_tensor(view.kf_pt_host, device=self.device)
+            self.carry = self.carry._replace(
+                m=view.map._replace(kf_pt_idx=kf_pt,
+                                    pt_valid=torch.as_tensor(view.pt_valid_host,
+                                                             device=self.device)),
+                T_last=view.map.kf_pose[newest].clone(),
+                velocity=torch.eye(3, 4, dtype=torch.float32, device=self.device),
+                vel_ok=False,
+                last_pt=kf_pt[newest].clone(),
+            )
 
     # -- views and exports ------------------------------------------------
 
@@ -597,3 +719,68 @@ class ChunkedTracker:
         Ts = m.kf_pose.cpu().numpy()[kf_valid]
         order = np.argsort(ts)
         return ts[order], Ts[order]
+
+
+class _LoopView:
+    """MonoTracker-shaped adapter over a ChunkCarry, so that the LoopCloser
+    runs between chunks. The monotonic allocator makes slot == insertion
+    order, so kf_slots is range(kf_count). Changes (map, observation rows,
+    point validity) accumulate on the view; ``_maybe_close_loops`` folds
+    them back into the carry."""
+
+    def __init__(self, chunked: ChunkedTracker):
+        m = chunked.carry.m
+        self.cfg = chunked.cfg
+        self.cam = chunked.cfg.camera
+        self.map = m
+        self.scale2_np = chunked.inner.scale2_np
+        self.generator = chunked.loop_rng
+        self.kf_slots = list(range(chunked.kf_count_host))
+        self.kf_valid_host = m.kf_valid.cpu().numpy()
+        self.kf_pt_host = m.kf_pt_idx.cpu().numpy().copy()
+        self.pt_valid_host = m.pt_valid.cpu().numpy().copy()
+        self._covis_cache = None
+
+    def covis_weights(self, slot: int) -> np.ndarray:
+        """Row of the covisibility matrix: one cached product per pass."""
+        if self._covis_cache is None:
+            m = self.map
+            self._covis_cache = covisibility(m.kf_pt_idx, m.kf_kp_valid, m.kf_valid,
+                                             m.pt_pos.shape[0]).cpu().numpy().astype(np.int64)
+        return self._covis_cache[slot]
+
+    def invalidate_covis(self) -> None:
+        self._covis_cache = None
+
+    def _apply_ba(self, ba):
+        m = self.map
+        dev = m.pt_pos.device
+        ws = torch.as_tensor(ba.kf_slots, dtype=torch.int64, device=dev)
+        kf_pose = m.kf_pose.clone()
+        kf_pose[ws] = ba.poses
+        keep = ba.pt_slots >= 0
+        pt_pos = m.pt_pos.clone()
+        pt_pos[torch.as_tensor(ba.pt_slots[keep], device=dev)] = \
+            ba.points[torch.as_tensor(keep, device=dev)]
+        m = m._replace(kf_pose=kf_pose, pt_pos=pt_pos)
+        drop = ba.drop_obs
+        if drop.any():
+            new_pt = self.kf_pt_host[ba.kf_slots]
+            new_pt[drop] = -1
+            self.kf_pt_host[ba.kf_slots] = new_pt
+            kf_pt_idx = m.kf_pt_idx.clone()
+            kf_pt_idx[ws] = torch.as_tensor(new_pt, device=dev)
+            m = m._replace(kf_pt_idx=kf_pt_idx)
+        self.map = m
+
+
+def batch_from_frames(frames, timestamps) -> FrameBatch:
+    """Stack a list of Frame into one chunk."""
+    return FrameBatch(
+        kp=torch.stack([f.kp for f in frames]),
+        desc=torch.stack([f.desc for f in frames]),
+        octave=torch.stack([f.octave for f in frames]),
+        angle=torch.stack([f.angle for f in frames]),
+        valid=torch.stack([f.valid for f in frames]),
+        timestamp=torch.as_tensor(np.asarray(timestamps, np.float32)),
+    )

@@ -31,6 +31,27 @@ def scatter_max(base: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> tor
     return base.scatter_reduce(0, idx.long(), val.to(base.dtype), "amax")
 
 
+def set_rows_drop(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``arr.at[idx].set(val, mode="drop")`` for indices that are unique
+    within range; an index equal to len(arr) is dropped. Returns a new
+    tensor (no host sync: dropped rows land in a scratch row)."""
+    ext = torch.cat([arr, arr[:1]], 0)
+    ext[idx.long()] = val.to(arr.dtype) if torch.is_tensor(val) else val
+    return ext[: arr.shape[0]]
+
+
+def set_last_wins(arr: torch.Tensor, sorted_idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """``arr.at[sorted_idx].set(val)`` for SORTED indices with duplicates,
+    where the last update of each index wins, as XLA's CPU scatter applies
+    them. Deterministic on every device."""
+    last = torch.cat([sorted_idx[1:] != sorted_idx[:-1],
+                      torch.ones(1, dtype=torch.bool, device=sorted_idx.device)])
+    # scatter only the last occurrence of each index (all others go to a
+    # scratch row), so the written indices are unique
+    idx = torch.where(last, sorted_idx, arr.shape[0])
+    return set_rows_drop(arr, idx, val)
+
+
 def _octave_clip(octave, n):
     return torch.clamp(octave, 0, n - 1).long()
 

@@ -231,14 +231,17 @@ class InitResult(NamedTuple):
 
 
 def sample_hypotheses(valid: torch.Tensor, n_hyp: int,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
-    """[n_hyp, 8] indices drawn with replacement from the valid rows."""
+                      generator: Optional[torch.Generator],
+                      sample_size: int = 8) -> torch.Tensor:
+    """[n_hyp, sample_size] indices drawn with replacement from the valid
+    rows, on the host (a seed gives the same draws on every device)."""
     p = valid.to(torch.float32)
     p = p / torch.clamp(p.sum(), min=1.0)
     if float(p.sum()) == 0.0:
         p = torch.ones_like(p) / p.numel()
-    flat = torch.multinomial(p.cpu(), n_hyp * 8, replacement=True, generator=generator)
-    return flat.reshape(n_hyp, 8).to(valid.device)
+    flat = torch.multinomial(p.cpu(), n_hyp * sample_size, replacement=True,
+                             generator=generator)
+    return flat.reshape(n_hyp, sample_size).to(valid.device)
 
 
 def initialize_two_view(cam: Camera, uv1, uv2, valid,

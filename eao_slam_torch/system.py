@@ -2,9 +2,13 @@
 
 ``System(cfg).track_monocular(img, t)`` bootstraps two-view initialization
 frame by frame, then buffers raw images into chunks and dispatches each
-full chunk through ORB extraction and chunk tracking. Poses come back at
-chunk granularity; ``flush()`` dispatches a partial tail chunk and
-``frame_trajectory()`` returns every tracked pose.
+full chunk through ORB extraction and chunk tracking.
+``track_frame(frame, t)`` is the same with pre-extracted front-end output
+(the feature-level seam). After every chunk the tracker runs its
+between-chunk passes: map maintenance, loop closing and relocalization.
+Poses come back at chunk granularity; ``flush()`` dispatches a partial
+tail chunk and ``frame_trajectory()`` returns every tracked pose.
+``save_checkpoint`` / ``load_checkpoint`` stop and resume a run.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -14,10 +18,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from eao_slam_torch.config import DemoFlag, SystemConfig, check_supported, tum3_config
-from eao_slam_torch.runtime.frame import frame_from_image
-from eao_slam_torch.runtime.scan_tracker import ChunkedTracker
+from eao_slam_torch.runtime.frame import Frame, frame_from_image
+from eao_slam_torch.runtime.scan_tracker import ChunkedTracker, batch_from_frames
 
 OK = 2
 
@@ -31,8 +36,15 @@ class System:
         self.cfg = config if config is not None else tum3_config(flag)
         check_supported(self.cfg, chunked=chunked)
         self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device)
+        self.tracker.compaction_listeners.append(self._on_compaction)
         self.device = self.tracker.device
-        self._img_buf: list = []   # (img u8, ts)
+        # retained keyframe images, keyed by keyframe slot and remapped
+        # through compactions; only the offline semi-dense phase (ROADMAP.md
+        # Queue 1 item 12) fills it
+        self._kf_images: dict = {}
+        # chunk buffers (image path and feature path: one per System)
+        self._img_buf: list = []     # (img u8, ts)
+        self._frame_buf: list = []   # (Frame, ts)
 
     @property
     def _armed(self) -> bool:
@@ -42,18 +54,29 @@ class System:
         """Feed one grayscale image [H, W]. Returns T_cw [3, 4] when a pose
         is known at this call (bootstrap, or the last frame of a chunk just
         dispatched), else None."""
-        T = None
         if self._armed:
+            if self._frame_buf:
+                raise RuntimeError("mixed track_frame / track_monocular")
             self._img_buf.append((np.asarray(img, np.uint8), float(timestamp)))
             if len(self._img_buf) >= self.tracker.chunk:
-                T = self._flush_images()
-        else:
-            frame = frame_from_image(self.cfg, img, self.device)
-            inner = self.tracker.inner
-            self.tracker.bootstrap(frame, float(timestamp))
-            if inner.state == OK:
-                T = np.asarray(inner.last_T)
-        return T
+                return self._flush_images()
+            return None
+        return self.track_frame(frame_from_image(self.cfg, img, self.device), timestamp)
+
+    def track_frame(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
+        """Feed a pre-extracted Frame (``runtime.frame.frame_from_arrays``).
+        Returns T_cw [3, 4] as ``track_monocular`` does."""
+        frame = Frame(*(x.to(self.device) for x in frame))
+        if self._armed:
+            if self._img_buf:
+                raise RuntimeError("mixed track_frame / track_monocular")
+            self._frame_buf.append((frame, float(timestamp)))
+            if len(self._frame_buf) >= self.tracker.chunk:
+                return self._flush_frames()
+            return None
+        inner = self.tracker.inner
+        self.tracker.bootstrap(frame, float(timestamp))
+        return np.asarray(inner.last_T) if inner.state == OK else None
 
     def _flush_images(self) -> Optional[np.ndarray]:
         buf, self._img_buf = self._img_buf, []
@@ -65,10 +88,53 @@ class System:
         n = len(buf)
         return np.asarray(outs.T[n - 1]) if int(outs.state[n - 1]) == OK else None
 
+    def _flush_frames(self) -> Optional[np.ndarray]:
+        """Dispatch the buffered frames as one chunk, a short tail padded
+        with its last frame and masked inactive."""
+        buf, self._frame_buf = self._frame_buf, []
+        if not buf:
+            return None
+        C = self.tracker.chunk
+        n = len(buf)
+        frames = [b[0] for b in buf] + [buf[-1][0]] * (C - n)
+        ts = [b[1] for b in buf] + [buf[-1][1]] * (C - n)
+        batch = batch_from_frames(frames, ts)
+        if n < C:
+            act = np.zeros((C,), bool)
+            act[:n] = True
+            batch = batch._replace(active=torch.as_tensor(act))
+        outs = self.tracker.track_batch(batch)
+        return np.asarray(outs.T[n - 1]) if int(outs.state[n - 1]) == OK else None
+
+    def _on_compaction(self, kf_remap: np.ndarray, pt_remap: np.ndarray):
+        """Keyframe slots were compacted: re-key the retained images."""
+        self._kf_images = {int(kf_remap[s]): img for s, img in self._kf_images.items()
+                           if 0 <= s < len(kf_remap) and kf_remap[s] >= 0}
+
     def flush(self) -> None:
         """Dispatch any partially filled chunk."""
         if self._img_buf:
             self._flush_images()
+        if self._frame_buf:
+            self._flush_frames()
+
+    def save_checkpoint(self, path: str) -> None:
+        """Serialize the tracker mid-sequence (pending buffers flush first):
+        carry, trajectory records, loop-closer state, loop RNG."""
+        from eao_slam_torch.runtime.checkpoint import save_chunked_checkpoint
+
+        self.flush()
+        save_chunked_checkpoint(path, self.tracker)
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore a checkpoint into this System (same capacities); tracking
+        resumes where the save left off. Returns the file's meta dict."""
+        from eao_slam_torch.runtime.checkpoint import load_chunked_checkpoint
+
+        meta = load_chunked_checkpoint(path, self.tracker)
+        self._img_buf = []
+        self._frame_buf = []
+        return meta
 
     def shutdown(self, semidense: bool = False):
         """Flush the tail chunk. The offline semi-dense phase is ROADMAP.md
@@ -87,3 +153,4 @@ class System:
     def keyframe_trajectory(self):
         self.flush()
         return self.tracker.keyframe_trajectory()
+

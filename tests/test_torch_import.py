@@ -1,5 +1,5 @@
 """The port stands alone: no JAX, no reference package, the card by default,
-and the unported modes refuse loudly."""
+the default configuration builds, and the unported modes refuse loudly."""
 
 import subprocess
 import sys
@@ -33,7 +33,6 @@ def test_port_imports_no_jax():
 
 def _cfg(**kw):
     return tum3_config().replace(
-        tracking=TrackingConfig(enable_loop_closing=False),
         capacity=CapacityConfig(max_keyframes=8, max_points=64, max_features=32,
                                 local_ba_points=32), **kw)
 
@@ -49,17 +48,26 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     assert System(_cfg(), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("case", ["flag", "loop_closing", "per_frame"])
+def test_default_configuration_builds():
+    """``System()`` with the default TrackingConfig (loop closing on, the
+    reference's default) builds, with its loop closer."""
+    from eao_slam_torch.system import System
+
+    assert TrackingConfig().enable_loop_closing
+    sysm = System(device="cpu")
+    assert sysm.tracker.loop_closer is not None
+    assert System(_cfg(), device="cpu").tracker.loop_closer is not None
+    off = _cfg().replace(tracking=TrackingConfig(enable_loop_closing=False))
+    assert System(off, device="cpu").tracker.loop_closer is None
+
+
+@pytest.mark.parametrize("case", ["flag", "per_frame"])
 def test_unported_modes_raise(case):
     from eao_slam_torch.system import System
 
     if case == "flag":
         with pytest.raises(NotImplementedError, match="item 9"):
             System(_cfg(flag=DemoFlag.EAO), device="cpu")
-    elif case == "loop_closing":
-        cfg = _cfg().replace(tracking=TrackingConfig(enable_loop_closing=True))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            System(cfg, device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="item 13"):
             System(_cfg(), chunked=False, device="cpu")

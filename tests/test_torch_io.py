@@ -33,3 +33,26 @@ def test_ate_and_umeyama_identical():
         assert ttraj.ate_rmse(x, y, with_scale=with_scale) == jtraj.ate_rmse(x, y, with_scale=with_scale)
     for a, b in zip(ttraj.umeyama_alignment(x, y), jtraj.umeyama_alignment(x, y)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_orbit_closed_room_and_observations_identical():
+    """The loop circuit's inputs: the closed room, the orbit and the
+    feature-level observations drawn from one numpy generator."""
+    kw = dict(seed=5, n_landmarks=300, n_objects=3, closed_room=True)
+    sj, st = jsyn.make_room_scene(**kw), tsyn.make_room_scene(**kw)
+    np.testing.assert_array_equal(st.landmarks, sj.landmarks)
+    np.testing.assert_array_equal(st.descriptors, sj.descriptors)
+    assert len(st.quads) == len(sj.quads)
+    tj, Tj = jsyn.make_orbit_trajectory(n_frames=24, radius=2.2)
+    tt, Tt = tsyn.make_orbit_trajectory(n_frames=24, radius=2.2)
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_array_equal(Tt, Tj)
+    rj, rt = np.random.default_rng(7), np.random.default_rng(7)
+    for k in (0, 11, 23):
+        oj = jsyn.simulate_observations(sj, JCAM, Tj[k], 128, rj)
+        ot = tsyn.simulate_observations(st, TCAM, Tt[k], 128, rt)
+        assert oj.keys() == ot.keys()
+        for name in oj:
+            np.testing.assert_array_equal(ot[name], oj[name], err_msg=name)
+    np.testing.assert_array_equal(tsyn.render_image(st, TCAM, Tt[5]),
+                                  jsyn.render_image(sj, JCAM, Tj[5]))

@@ -25,7 +25,6 @@ purpose, and the end-to-end run is held to the health gates of the
 repository's verify skill instead of to the reference's trajectory."""
 
 import numpy as np
-import pytest
 import torch
 
 from eao_slam_tpu.ops.orb import scale_sigma2 as jscale2
@@ -144,17 +143,3 @@ def test_system_from_raw_images_meets_verify_gates():
     assert ate < 0.10, ate
     kt, kT = sysm.keyframe_trajectory()
     assert len(kt) >= 5 and np.all(np.diff(kt) > 0)
-
-
-@pytest.mark.parametrize("case", ["maintain", "relocalize"])
-def test_unported_between_chunk_passes_raise(case):
-    tracker = tst.ChunkedTracker(torch_config(), chunk=8, device="cpu")
-    tracker.carry = object()       # armed
-    if case == "maintain":
-        tracker.kf_count_host = tracker.cfg.capacity.max_keyframes - 1
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tracker._maybe_maintain()
-    else:
-        tracker.state_host = tst.LOST
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tracker._maybe_relocalize()

@@ -10,6 +10,11 @@ import torch
 
 CPU = torch.device("cpu")
 
+# The tests run in several worker processes at once (pytest-xdist), each of
+# which imports this module: one intra-op thread each, or torch's thread
+# pools oversubscribe the cores and spin against one another.
+torch.set_num_threads(1)
+
 
 def t(x, dtype=None) -> torch.Tensor:
     """numpy / jax array -> CPU tensor (uint32 descriptors keep their bits
@@ -99,3 +104,58 @@ def jax_carry_numpy(c) -> dict:
     d = {k: np.asarray(v) for k, v in c._asdict().items() if k not in ("m", "table", "obj_key")}
     d["m"] = {k: np.asarray(v) for k, v in c.m._asdict().items()}
     return d
+
+
+def reference_draws_for(module, name, solver, seed: int, shape_of):
+    """(module, name, replacement) for ``monkeypatch.setattr``: ``solver``
+    (a port RANSAC) fed the reference's own draws. The reference splits
+    its between-chunk loop key (``PRNGKey(seed + 7)``) once per RANSAC
+    call and draws with ``jax.random.choice`` over the valid rows; the
+    replacement does the same, in the same order, and passes the draws as
+    ``hyp_idx``. ``shape_of(n_hyp)`` gives the draw's shape."""
+    import jax
+
+    key = [jax.random.PRNGKey(seed + 7)]
+
+    def drawn(cam, *args, generator=None, n_hyp=None, hyp_idx=None, **kw):
+        key[0], sub = jax.random.split(key[0])
+        valid = n(args[2])
+        p = jax.numpy.asarray(valid, jax.numpy.float32) / max(int(valid.sum()), 1)
+        kw_n = {} if n_hyp is None else {"n_hyp": n_hyp}
+        idx = np.asarray(jax.random.choice(sub, valid.shape[0], shape=shape_of(n_hyp), p=p))
+        return solver(cam, *args, hyp_idx=t(idx), **kw_n, **kw)
+
+    return module, name, drawn
+
+
+@lru_cache(maxsize=None)
+def feature_sequence():
+    """The reference's chunked-tracker test sequence (tests/test_scan_tracker.py):
+    a 40-degree arc of 50 frames through the room of seed 3, simulated at the
+    feature level (256 features). Returns (timestamps, T_cw, observations)."""
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import make_arc_trajectory, make_room_scene, simulate_observations
+
+    scene = make_room_scene(seed=3, n_landmarks=1200, n_objects=3)
+    ts, gt = make_arc_trajectory(n_frames=50, sweep_deg=40.0)
+    rng = np.random.default_rng(7)
+    obs = [simulate_observations(scene, TUM3, T, max_features=256, rng=rng, pixel_noise=0.4,
+                                 bit_flips=6, dropout=0.05) for T in gt]
+    return ts, gt, obs
+
+
+def jax_feature_bootstrap(cfg):
+    """A reference ChunkedTracker (loop closing on) bootstrapped on
+    ``feature_sequence``. Returns (tracker, first index after bootstrap)."""
+    from eao_slam_tpu.runtime.frame import frame_from_arrays
+    from eao_slam_tpu.runtime.scan_tracker import ChunkedTracker
+
+    ts, _, obs = feature_sequence()
+    tr = ChunkedTracker(cfg, chunk=5)
+    i = 0
+    while tr.carry is None:
+        o = obs[i]
+        tr.bootstrap(frame_from_arrays(cfg, kp=o["kp"], desc=o["desc"], octave=o["octave"],
+                                       valid=o["valid"]), float(ts[i]))
+        i += 1
+    return tr, i
