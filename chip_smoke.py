@@ -45,7 +45,27 @@ Phases, in order; any failure exits non-zero:
   7. checkpoint: the loop run again, saved at a chunk boundary half way,
      loaded into a fresh System and finished: the trajectory must equal
      the uninterrupted run's to 1e-5;
-  8. print the host-clock time of each between-chunk pass (after a
+  8. the EAO object layer (bench.py's EAO mode): DemoFlag.EAO at the main
+     path's widths with 8 detector boxes a frame (the port's project_boxes
+     of the scene's three cuboids) and 32 object slots, through
+     System.track_monocular(..., boxes=...) on the same arc, seeds 12345
+     and 1-6. Gates, on every run: it tracks >= 90 % of its timed frames,
+     ends with >= 3 live objects, among them one of each scene object's
+     class (bench.py's gate, and every scene object found), stays under
+     the ATE limit, and each scene object's centre error stays under the
+     object limit; over the seven runs the median ATE stays under its
+     limit. The centre error is read in the camera frames of the
+     keyframes that observed the object, at the map's own scale
+     (eao_slam_torch.io.trajectory.map_object_errors). The limits are 1.5
+     times the JAX reference's own EAO spread (reference_ate_spread.py
+     --flag EAO, on the CPU). The FAST kernel's launches are counted on
+     the default seed's run. The object layer's cost per chunk is the
+     default seed's EAO chunk time less its geometry chunk time (printed
+     with how far the two runs' timed poses differ); the chunk-rate
+     iForest cull is also timed alone, on the default seed's final state.
+     Each run also prints, ungated, the object measure of the reference's
+     tests/test_objects_e2e.py (after one sim3 of the keyframe trajectory);
+  9. print the host-clock time of each between-chunk pass (after a
      synchronise; medians where a pass repeats) and its share of a chunk,
      the card's name and power limit, one JSON line describing every
      kernel, and last the JSON result line.
@@ -91,6 +111,18 @@ SEEDS = (12345, 1, 2, 3, 4, 5, 6)
 ATE_LIMIT_M = 1.5 * 0.1863
 MEDIAN_ATE_LIMIT_M = 1.5 * 0.1363
 
+# EAO phase: JAX reference in EAO mode on the CPU (reference_ate_spread.py
+# --flag EAO), over seeds 12345 and 1-19: sim3 ATE worst 0.1847 m, median
+# 0.1360 m; 3 live objects, one of each scene class (56, 62, 73), on every
+# seed; the worst object-centre error (map_object_errors) over seeds 12345
+# and 1-6, the seeds gated here, 0.4613 m (seed 5). The port is held to 1.5
+# times each, the object centres on every run and every scene object.
+EAO_ATE_LIMIT_M = 1.5 * 0.1847
+EAO_MEDIAN_ATE_LIMIT_M = 1.5 * 0.1360
+EAO_OBJECT_LIMIT_M = 1.5 * 0.4613
+N_BOXES = 8
+MIN_OBJECTS = 3
+
 CHUNK = 32
 N_TIMED = 4
 N_FRAMES = 8 + CHUNK * (1 + N_TIMED)
@@ -124,12 +156,28 @@ def _render(T_cw):
     return render_image(_SCENE, TUM3, T_cw)
 
 
+def bench_scene():
+    from eao_slam_torch.io.synthetic import make_room_scene
+
+    return make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
+
+
+def bench_boxes(gt) -> list:
+    """bench.py's detector boxes: the port's project_boxes of the scene's
+    cuboids, N_BOXES slots a frame."""
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import project_boxes
+
+    scene = bench_scene()
+    return [project_boxes(scene, TUM3, T, N_BOXES) for T in gt]
+
+
 def render_sequence(n_frames: int = None):
     """The bench arc (or its first n_frames), rendered with the port's own
     synthetic renderer."""
-    from eao_slam_torch.io.synthetic import make_arc_trajectory, make_room_scene
+    from eao_slam_torch.io.synthetic import make_arc_trajectory
 
-    scene = make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
+    scene = bench_scene()
     ts, gt = make_arc_trajectory(n_frames=N_FRAMES, sweep_deg=60.0)
     ts, gt = ts[:n_frames], gt[:n_frames]
     t0 = time.perf_counter()
@@ -258,23 +306,22 @@ class PassTimer:
 
     def __init__(self, tracker):
         self.tracker = tracker
-        self.times = {k: [] for k in ("chunk", "maintenance", "loop pass, closure",
-                                      "loop pass, no closure", "relocalization, success",
-                                      "relocalization, failed")}
+        self.times = {k: [] for k in ("chunk", "object merge", "maintenance",
+                                      "loop pass, closure", "loop pass, no closure",
+                                      "relocalization, success", "relocalization, failed")}
         for name in ("_extract_track", "_track_chunk"):
             setattr(tracker, name, self._timed(getattr(tracker, name), self._chunk))
-        for name in ("_maybe_maintain", "_maybe_close_loops", "_maybe_relocalize"):
+        for name in ("_maybe_merge_objects", "_maybe_maintain", "_maybe_close_loops",
+                     "_maybe_relocalize"):
             setattr(tracker, name, self._timed(getattr(tracker, name), getattr(self, name)))
 
     def _timed(self, fn, classify):
-        import torch
-
         def wrapped(*args, **kw):
             before = self._snapshot()
-            torch.cuda.synchronize()
+            sync(self.tracker.device)
             t0 = time.perf_counter()
             out = fn(*args, **kw)
-            torch.cuda.synchronize()
+            sync(self.tracker.device)
             kind = classify(before)
             if kind is not None:
                 self.times[kind].append(time.perf_counter() - t0)
@@ -290,6 +337,9 @@ class PassTimer:
 
     def _chunk(self, before):
         return "chunk"
+
+    def _maybe_merge_objects(self, before):
+        return "object merge" if self.tracker.carry.table is not None else None
 
     def _maybe_maintain(self, before):
         return "maintenance" if self.tracker.n_maintenance > before[0] else None
@@ -326,27 +376,49 @@ def print_passes(tag: str, timer: PassTimer) -> dict:
     return summ
 
 
-def run_main_path(ts, gt, images, seed: int) -> dict:
-    """Bootstrap, warm-up and timed chunks through System.track_monocular
-    with the given RANSAC seed. Returns the tracked frames, sim3 ATE and
-    fps of the timed chunks."""
+def sync(device) -> None:
     import torch
 
-    from eao_slam_torch.config import CapacityConfig, tum3_config
-    from eao_slam_torch.io.trajectory import ate_rmse
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_main_path(ts, gt, images, seed: int, boxes=None, device: str = "cuda") -> dict:
+    """Bootstrap, warm-up and timed chunks through System.track_monocular
+    with the given RANSAC seed: geometry mode, or with ``boxes`` (one
+    detector tuple per frame) DemoFlag.EAO with N_BOXES boxes and 32 object
+    slots. Returns the tracked frames, sim3 ATE, fps and poses of the timed
+    chunks and the pass timer; in EAO mode also the live objects, each
+    scene object's centre error, and the merges and kills of the merge
+    pass. ``device="cpu"`` runs the port on the host (port_ate_spread.py)."""
+    from eao_slam_torch.config import CapacityConfig, DemoFlag, tum3_config
     from eao_slam_torch.system import System
 
-    cfg = tum3_config().replace(
+    eao = boxes is not None
+    cfg = tum3_config(DemoFlag.EAO if eao else DemoFlag.NONE).replace(
         capacity=CapacityConfig(max_keyframes=128, max_points=8192,
-                                max_features=1024, local_ba_points=2048),
+                                max_features=1024, local_ba_points=2048,
+                                **(dict(max_boxes=N_BOXES, max_objects=32) if eao else {})),
         seed=seed,
     )
-    sysm = System(cfg, chunk=CHUNK)
+    sysm = System(cfg, chunk=CHUNK, device=device)
     timer = PassTimer(sysm.tracker)
-    assert sysm.device.type == "cuda"
+    out = _drive_main_path(sysm, ts, gt, images, boxes, seed)
+    out["timer"] = timer
+    return out
+
+
+def _drive_main_path(sysm, ts, gt, images, boxes, seed) -> dict:
+    from eao_slam_torch.io.trajectory import ate_rmse
+
+    eao = boxes is not None
+
+    def feed(k):
+        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k] if eao else None)
+
     i = 0
     while i < len(images) and not sysm.tracker.armed:
-        sysm.track_monocular(images[i], float(ts[i]))
+        feed(i)
         i += 1
     if not sysm.tracker.armed:
         raise AssertionError("two-view initialization never succeeded")
@@ -357,16 +429,16 @@ def run_main_path(ts, gt, images, seed: int) -> dict:
     if n_warm <= 0:
         raise AssertionError(f"bootstrap took {n_boot} frames; the arc has {len(images)}")
     for _ in range(n_warm):
-        sysm.track_monocular(images[i], float(ts[i]))
+        feed(i)
         i += 1
     sysm.flush()
-    torch.cuda.synchronize()
+    sync(sysm.device)
     lo = i
     t0 = time.perf_counter()
     for _ in range(N_TIMED * CHUNK):
-        sysm.track_monocular(images[i], float(ts[i]))
+        feed(i)
         i += 1
-    torch.cuda.synchronize()
+    sync(sysm.device)
     dt = time.perf_counter() - t0
 
     recs = sysm.tracker.records[lo:i]
@@ -380,21 +452,142 @@ def run_main_path(ts, gt, images, seed: int) -> dict:
     total = N_TIMED * CHUNK
     fps = total / dt
     loops = sysm.tracker.loop_closer.closed_loops
-    print(f"seed {seed}: bootstrap {n_boot} frames, {tracked}/{total} timed frames tracked, "
-          f"sim3 ATE {ate:.4f} m, {fps:.2f} fps over {N_TIMED} timed chunks "
-          f"({dt:.3f} s), keyframes {sysm.tracker.kf_count_host}, points "
-          f"{sysm.tracker.pt_count_host}, loops closed {loops}")
-    return {"seed": seed, "fps": fps, "tracked": tracked, "total": total, "ate_m": ate,
-            "loops": loops, "timer": timer}
+    out = {"seed": seed, "fps": fps, "tracked": tracked, "total": total, "ate_m": ate,
+           "loops": loops, "poses": poses}
+    tag = f"{'EAO ' if eao else ''}seed {seed}"
+    if eao:
+        out.update(object_results(sysm.tracker, ts, gt))
+        tag += (f": {out['objects']} live objects of the scene's classes (classes "
+                f"{out['object_classes']}), centre errors "
+                f"{', '.join(f'{e:.3f}' for e in out['object_centre_err_m'])} m (after a sim3 "
+                f"of the keyframe trajectory, ungated: "
+                f"{', '.join(f'{e:.3f}' for e in out['object_centre_err_sim3_m'])} m), merges "
+                f"{out['merges']}, kills {out['kills']}, object keyframes "
+                f"{out['object_keyframes']}")
+    print(f"{tag}: bootstrap {n_boot} frames, {tracked}/{total} timed frames tracked, "
+          f"sim3 ATE {ate:.4f} m, {fps:.2f} fps over {N_TIMED} timed chunks ({dt:.3f} s), "
+          f"keyframes {sysm.tracker.kf_count_host}, points {sysm.tracker.pt_count_host}, "
+          f"loops closed {loops}")
+    return out
 
 
-def check_run(run: dict) -> None:
+def object_results(tracker, ts, gt) -> dict:
+    """The live objects of the scene's classes, whether every scene class
+    has one, and each scene object's centre error (map_object_errors: in
+    the camera frames of the keyframes that observed the object, at the
+    map's scale)."""
+    from eao_slam_torch.io.trajectory import map_object_errors, sim3_object_errors
+
+    scene = bench_scene()
+    tab = {k: v.cpu().numpy() for k, v in tracker.obj_table._asdict().items()}
+    m = {k: v.cpu().numpy() for k, v in tracker.map._asdict().items()}
+    live = tab["valid"] & ~tab["bad"] & np.isin(tab["cls"], scene.obj_classes)
+    cls = tab["cls"][live]
+    return {"objects": int(live.sum()), "object_classes": sorted(int(c) for c in cls),
+            "every_class": set(scene.obj_classes.tolist()) <= set(cls.tolist()),
+            "object_centre_err_m": map_object_errors(m, tab, ts, gt, scene.obj_centers,
+                                                     scene.obj_classes),
+            "object_centre_err_sim3_m": sim3_object_errors(m, tab, ts, gt, scene.obj_centers),
+            "merges": tracker.n_object_merges, "kills": tracker.n_object_kills,
+            "object_keyframes": int(m["kf_by_object"].sum())}
+
+
+def check_run(run: dict, ate_limit: float = ATE_LIMIT_M) -> None:
     if run["tracked"] < int(0.9 * run["total"]):
         raise AssertionError(f"seed {run['seed']}: tracking collapsed: "
                              f"{run['tracked']}/{run['total']}")
-    if not run["ate_m"] < ATE_LIMIT_M:
+    if not run["ate_m"] < ate_limit:
         raise AssertionError(f"seed {run['seed']}: trajectory drifted: sim3 ATE "
-                             f"{run['ate_m']:.4f} m >= {ATE_LIMIT_M:.4f} m")
+                             f"{run['ate_m']:.4f} m >= {ate_limit:.4f} m")
+
+
+def check_eao_run(run: dict) -> None:
+    check_run(run, EAO_ATE_LIMIT_M)
+    if run["objects"] < MIN_OBJECTS or not run["every_class"]:
+        raise AssertionError(f"EAO seed {run['seed']}: live objects of classes "
+                             f"{run['object_classes']}: fewer than {MIN_OBJECTS}, or a scene "
+                             f"object without one")
+    worst = max(run["object_centre_err_m"])
+    if not worst < EAO_OBJECT_LIMIT_M:
+        raise AssertionError(f"EAO seed {run['seed']}: object centre error {worst:.3f} m >= "
+                             f"{EAO_OBJECT_LIMIT_M:.3f} m")
+
+
+def iforest_cull_ms(tracker) -> float:
+    """The chunk-rate iForest cull alone, on the tracker's final state (the
+    objects its last chunk updated), between synchronises: median of 5
+    calls after one warm-up, draws from a generator of their own."""
+    import torch
+
+    from eao_slam_torch.objects.association import N_OBJ_SAMPLE, chunk_iforest_cull
+    from eao_slam_torch.objects.iforest import draw_iforest, psi_depth_for
+
+    c = tracker.carry
+    psi, depth = psi_depth_for(N_OBJ_SAMPLE)
+    gen = torch.Generator().manual_seed(0)
+    times = []
+    for _ in range(6):
+        sync(tracker.device)
+        t0 = time.perf_counter()
+        chunk_iforest_cull(tracker.cfg.camera, c.m, c.table, c.T_last, c.frame_id - CHUNK + 1,
+                           lambda mask: draw_iforest(gen, mask, psi, depth), depth)
+        sync(tracker.device)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:])) * 1e3
+
+
+def run_eao(ts, gt, images, geometry: dict) -> dict:
+    """The EAO phase: the default seed (fps, the kernel's launch count, the
+    object layer's cost against ``geometry``, the geometry run of the same
+    seed), then seeds 1-6."""
+    from eao_slam_torch.ops import fast_nms
+
+    boxes = bench_boxes(gt)
+    fast_nms.reset_launches()
+    first = run_main_path(ts, gt, images, SEEDS[0], boxes=boxes)
+    launches = dict(fast_nms.launches)
+    print(f"EAO path: launches {launches}")
+    if launches["fast_nms_tile_max"] <= 0:
+        raise AssertionError("the EAO path never launched fast_nms_tile_max")
+    check_eao_run(first)
+    chunk = {k: float(np.median(r["timer"].times["chunk"][-N_TIMED:])) * 1e3
+             for k, r in (("eao", first), ("geometry", geometry))}
+    same = first["poses"].shape == geometry["poses"].shape
+    pose_diff = float(np.abs(first["poses"] - geometry["poses"]).max()) if same else float("inf")
+    cull_ms = iforest_cull_ms(first["timer"].tracker)
+    merge_ms = [t * 1e3 for t in first["timer"].times["object merge"]]
+    layer = {"eao_chunk_ms": chunk["eao"], "geometry_chunk_ms": chunk["geometry"],
+             "object_layer_ms": chunk["eao"] - chunk["geometry"], "iforest_cull_ms": cull_ms,
+             "object_pass_ms": chunk["eao"] - chunk["geometry"] - cull_ms,
+             "merge_ms": float(np.median(merge_ms)), "eao_vs_geometry_max_pose_diff": pose_diff}
+    print(f"EAO, default seed: a timed chunk of {CHUNK} frames takes {chunk['eao']:.1f} ms against "
+          f"{chunk['geometry']:.1f} ms in geometry mode (medians, host clock between "
+          f"synchronises; timed poses differ by at most {pose_diff:.3g}): the object layer "
+          f"{layer['object_layer_ms']:.1f} ms a chunk: the iForest cull {cull_ms:.1f} ms "
+          f"(alone, on the final state), the per-frame object pass the other "
+          f"{layer['object_pass_ms']:.1f} ms; merge pass median {layer['merge_ms']:.1f} ms "
+          f"over {len(merge_ms)} passes")
+    runs = [first]
+    for seed in SEEDS[1:]:
+        runs.append(run_main_path(ts, gt, images, seed, boxes=boxes))
+        check_eao_run(runs[-1])
+    median_ate = float(np.median([r["ate_m"] for r in runs]))
+    print(f"EAO over seeds {list(SEEDS)}: sim3 ATE median {median_ate:.4f} m, worst "
+          f"{max(r['ate_m'] for r in runs):.4f} m; objects {[r['objects'] for r in runs]}; "
+          f"object centre error worst {max(max(r['object_centre_err_m']) for r in runs):.3f} m "
+          f"(limit {EAO_OBJECT_LIMIT_M:.3f} m); fps {[round(r['fps'], 2) for r in runs]}; "
+          f"merges {[r['merges'] for r in runs]}, kills {[r['kills'] for r in runs]} per run")
+    if not median_ate < EAO_MEDIAN_ATE_LIMIT_M:
+        raise AssertionError(f"EAO median sim3 ATE {median_ate:.4f} m >= "
+                             f"{EAO_MEDIAN_ATE_LIMIT_M:.4f} m")
+    return {"fps": first["fps"], "launches": launches, "median_ate_m": median_ate,
+            "by_seed": {r["seed"]: {k: r[k] for k in ("fps", "tracked", "total", "ate_m",
+                                                     "objects", "object_classes",
+                                                     "object_centre_err_m",
+                                                     "object_centre_err_sim3_m", "merges", "kills",
+                                                     "object_keyframes")}
+                        for r in runs},
+            "default_seed": layer}
 
 
 def _reloc_errors(tracker, gt_of_step, step, T_rec, n_local: int = 8):
@@ -696,6 +889,10 @@ def main() -> int:
         raise AssertionError(f"median sim3 ATE {median_ate:.4f} m >= {MEDIAN_ATE_LIMIT_M:.4f} m")
     main_passes = print_passes("main path, default seed", path["timer"])
 
+    eao = run_eao(ts, gt, images, path)
+    print(f"EAO {eao['fps']:.2f} fps against geometry {path['fps']:.2f} fps on this card "
+          f"(default seed, 4 timed chunks each)")
+
     long_run = run_long(ts, gt, images)
     circuit = run_circuit()
     print(json.dumps({"between_chunk": {
@@ -714,6 +911,7 @@ def main() -> int:
             "source": "eao_slam_torch/csrc/fast_nms.cu",
             "replaces": "eao_slam_tpu/ops/fast_pallas.py:89",
             "launches": launches[name],
+            "launches_eao_path": eao["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
@@ -729,6 +927,7 @@ def main() -> int:
         "ate_m": path["ate_m"], "median_ate_m": median_ate,
         "ate_m_by_seed": {r["seed"]: r["ate_m"] for r in runs},
         "loops_by_seed": {r["seed"]: r["loops"] for r in runs}, "card": card}}))
+    print(json.dumps({"eao": {k: v for k, v in eao.items() if k != "launches"}, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of the monocular object-SLAM engine.
 
-Geometry-mode (DemoFlag.NONE) chunked tracking runs from raw uint8 images
-to per-frame poses on one NVIDIA GPU. The dense FAST-9/16 + 3x3 NMS +
-packing stage is a hand-written CUDA kernel (csrc/fast_nms.cu); every
-other stage is plain PyTorch on tensors.
+Chunked tracking, in geometry mode (DemoFlag.NONE) and with the EAO object
+layer (DemoFlag.EAO and its ablations), runs from raw uint8 images (and
+detector boxes) to per-frame poses and object landmarks on one NVIDIA
+GPU. The dense FAST-9/16 + 3x3 NMS + packing stage is a hand-written CUDA
+kernel (csrc/fast_nms.cu); every other stage is plain PyTorch on tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Without a CUDA device and without an explicit ``device="cpu"`` they raise.

@@ -1,6 +1,6 @@
 """Configuration of the port: the same frozen dataclasses as the reference
-package's config, limited to the fields geometry-mode chunked tracking
-reads, with the reference's names and defaults.
+package's config, limited to the fields chunked tracking (geometry mode
+and the EAO object layer) reads, with the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from eao_slam_torch.geometry.camera import Camera, TUM3
 
 
 class DemoFlag(enum.Enum):
-    """Ablation flags (mono_tum CLI contract). The port runs NONE only."""
+    """Ablation flags (mono_tum CLI contract). The port runs NONE and the
+    object-layer flags without line-alignment yaw: IFOREST, NA, IOU, NP and
+    EAO."""
 
     NONE = "None"
     IFOREST = "iForest"
@@ -22,6 +24,29 @@ class DemoFlag(enum.Enum):
     NP = "NP"
     EAO = "EAO"
     FULL = "Full"
+
+    @property
+    def objects_enabled(self) -> bool:
+        return self != DemoFlag.NONE
+
+    @property
+    def use_iou(self) -> bool:
+        # the IoU stage runs unless the flag is NA or NP (src/Object.cc:184)
+        return self not in (DemoFlag.NA, DemoFlag.NP, DemoFlag.NONE)
+
+    @property
+    def use_nonparam(self) -> bool:
+        # the rank-sum stage runs unless the flag is NA or IoU (src/Object.cc:258)
+        return self not in (DemoFlag.NA, DemoFlag.IOU, DemoFlag.NONE)
+
+    @property
+    def use_ttest(self) -> bool:
+        # the t-test stage belongs to the full ensemble (src/Object.cc:465)
+        return self in (DemoFlag.EAO, DemoFlag.FULL, DemoFlag.IFOREST, DemoFlag.LINE_IFOREST)
+
+    @property
+    def use_yaw_lines(self) -> bool:
+        return self in (DemoFlag.LINE_IFOREST, DemoFlag.FULL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +75,16 @@ class TrackingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObjectConfig:
+    """EAO object-layer parameters the chunked path reads (src/Object.cc
+    constants)."""
+
+    proj_iou_threshold: float = 0.25      # projected-box stage (src/Object.cc:351)
+    iforest_seed: int = 12345             # :1214
+    min_points_per_object: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
 class MappingConfig:
     local_ba_kf_window: int = 16
     triangulation_neighbors: int = 2
@@ -62,7 +97,9 @@ class MappingConfig:
 class CapacityConfig:
     max_keyframes: int = 256
     max_points: int = 16384
+    max_objects: int = 64
     max_features: int = 1024
+    max_boxes: int = 16               # detector boxes per frame
     local_ba_points: int = 4096
 
 
@@ -73,6 +110,7 @@ class SystemConfig:
     orb: OrbConfig = OrbConfig()
     matcher: MatcherConfig = MatcherConfig()
     tracking: TrackingConfig = TrackingConfig()
+    objects: ObjectConfig = ObjectConfig()
     mapping: MappingConfig = MappingConfig()
     capacity: CapacityConfig = CapacityConfig()
     seed: int = 12345
@@ -88,13 +126,15 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
 
 
 def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
-    """The port covers geometry-mode chunked tracking with its between-chunk
-    passes (maintenance, loop closing, relocalization); everything else
-    names the ROADMAP.md item that will port it."""
-    if cfg.flag != DemoFlag.NONE:
+    """The port covers chunked tracking with its between-chunk passes
+    (object merge, maintenance, loop closing, relocalization), in geometry
+    mode and with the EAO object layer; everything else names the
+    ROADMAP.md item that will port it."""
+    if cfg.flag.use_yaw_lines:
         raise NotImplementedError(
-            f"DemoFlag.{cfg.flag.name} is not ported yet: the EAO object layer "
-            "is ROADMAP.md Queue 1 item 9, line-enabled FULL mode item 10")
+            f"DemoFlag.{cfg.flag.name} is not ported yet: line detection and "
+            "line-alignment yaw (ops/lines.py, objects/yaw.py) are ROADMAP.md "
+            "Queue 1 item 10")
     if not chunked:
         raise NotImplementedError(
             "the interactive per-frame tracker (chunked=False) is not ported "

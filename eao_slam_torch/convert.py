@@ -1,13 +1,15 @@
 """State exchange with the reference package, through numpy.
 
-The reference's MapState and ChunkCarry cross as dicts of numpy arrays
-(field name -> array, the carry's map under "m"). Descriptors are
-[.., 8] uint32 there and int32 with the same bit pattern here; the
-boundary converts with ``.view``. Carry fields the port does not use
-(the object table and its key, the localization switch) are ignored on
-the way in and left out on the way out. A LoopCloser's state crosses as a
-dict of its four attributes (signatures, consistency streaks, the last
-loop's order, the number of closed loops).
+The reference's MapState, ObjectTable and ChunkCarry cross as dicts of
+numpy arrays (field name -> array, the carry's map under "m", its object
+table under "table"). Descriptors are [.., 8] uint32 there and int32 with
+the same bit pattern here; the boundary converts with ``.view``. The
+carry's object table crosses both ways (None, or no "table" key, in
+geometry mode). The port's iForest generator crosses as its state array
+under "obj_rng"; the reference's ``jax.random`` key and its localization
+switch cannot seed or set anything here and are ignored on the way in. A
+LoopCloser's state crosses as a dict of its four attributes (signatures,
+consistency streaks, the last loop's order, the number of closed loops).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from eao_slam_torch.config import SystemConfig
+from eao_slam_torch.objects.state import ObjectTable
 from eao_slam_torch.runtime.loop_closing import LoopCloser
 from eao_slam_torch.runtime.map_state import MapState
 from eao_slam_torch.runtime.scan_tracker import ChunkCarry
@@ -51,11 +54,26 @@ def map_state_to_numpy(m: MapState) -> dict:
     return {f: _to_numpy(f, getattr(m, f)) for f in MapState._fields}
 
 
+def object_table_from_numpy(d: dict, device) -> ObjectTable:
+    return ObjectTable(**{f: _to_tensor(f, d[f], device) for f in ObjectTable._fields})
+
+
+def object_table_to_numpy(t: ObjectTable) -> dict:
+    return {f: _to_numpy(f, getattr(t, f)) for f in ObjectTable._fields}
+
+
 def carry_from_numpy(d: dict, device) -> ChunkCarry:
     kw = {}
     for f in ChunkCarry._fields:
         if f == "m":
             kw[f] = map_state_from_numpy(d["m"], device)
+        elif f == "table":
+            t = d.get("table")
+            kw[f] = None if t is None else object_table_from_numpy(t, device)
+        elif f == "obj_rng":
+            state = d.get("obj_rng")
+            kw[f] = None if state is None else \
+                torch.Generator().set_state(torch.as_tensor(np.asarray(state, np.uint8)))
         elif f in _HOST_SCALARS:
             kw[f] = int(np.asarray(d[f]))
         elif f == "vel_ok":
@@ -71,6 +89,10 @@ def carry_to_numpy(c: ChunkCarry) -> dict:
         v = getattr(c, f)
         if f == "m":
             out[f] = map_state_to_numpy(v)
+        elif f == "table":
+            out[f] = None if v is None else object_table_to_numpy(v)
+        elif f == "obj_rng":
+            out[f] = None if v is None else v.get_state().numpy()
         elif isinstance(v, torch.Tensor):
             out[f] = _to_numpy(f, v)
         else:

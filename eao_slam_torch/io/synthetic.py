@@ -318,6 +318,43 @@ def render_image(scene: Scene, cam, T_cw: np.ndarray, supersample: int = 1,
     return out
 
 
+def project_boxes(scene: Scene, cam, T_cw: np.ndarray, max_boxes: int, pad: float = 4.0):
+    """Synthetic offline-detector boxes: each cuboid's projected corners'
+    clipped bounding rect, padded to ``max_boxes`` slots. Returns (boxes
+    [B, 4] x y w h, class [B], score [B], valid [B]), the reference's text
+    contract order (class x y w h score)."""
+    J = len(scene.obj_centers)
+    boxes = np.zeros((max_boxes, 4), np.float32)
+    cls = np.full((max_boxes,), -1, np.int32)
+    score = np.zeros((max_boxes,), np.float32)
+    valid = np.zeros((max_boxes,), bool)
+    R, t = T_cw[:3, :3], T_cw[:3, 3]
+    n = 0
+    for j in range(J):
+        c, s = scene.obj_centers[j], scene.obj_sizes[j] / 2
+        corners = c[None, :] + np.array(
+            [[sx, sy, sz] for sx in (-s[0], s[0]) for sy in (-s[1], s[1]) for sz in (-s[2], s[2])]
+        )
+        pc = corners @ R.T + t
+        if (pc[:, 2] <= 0.1).any():
+            continue
+        uvs = np.stack(
+            [cam.fx * pc[:, 0] / pc[:, 2] + cam.cx, cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1
+        )
+        x0, y0 = uvs.min(0) - pad
+        x1, y1 = uvs.max(0) + pad
+        x0, y0 = max(x0, 0), max(y0, 0)
+        x1, y1 = min(x1, cam.width - 1), min(y1, cam.height - 1)
+        if x1 - x0 < 10 or y1 - y0 < 10 or n >= max_boxes:
+            continue
+        boxes[n] = (x0, y0, x1 - x0, y1 - y0)
+        cls[n] = scene.obj_classes[j]
+        score[n] = 0.95
+        valid[n] = True
+        n += 1
+    return boxes, cls, score, valid
+
+
 # ---------------------------------------------------------------------------
 # feature-level simulation
 # ---------------------------------------------------------------------------

@@ -9,15 +9,19 @@ loads here, so the loader also carries a reference run's state across
 are written as uint32.
 
 Where the port differs:
-- the loop RNG is a ``torch.Generator``; its state is saved in the array
-  ``loop_rng_state``. The reference's ``jax.random`` key (``loop_rng`` in
-  the meta) cannot seed it, so a file without ``loop_rng_state`` resumes
-  with a generator seeded afresh from the config, with a warning;
+- the loop RNG and the iForest RNG are ``torch.Generator``s; their states
+  are saved in the arrays ``loop_rng_state`` and ``iforest_rng_state``.
+  The reference's ``jax.random`` keys (``loop_rng`` in the meta, the
+  carry's ``c_obj_key``) cannot seed them, so a file without those arrays
+  resumes with generators seeded afresh from the config, with a warning;
+- the object table is written as ``t_*`` arrays, as the reference writes
+  it, in the object-layer modes only (the reference writes a one-slot
+  dummy table in geometry mode, which the port ignores);
 - consistency-streak groups are written as Python ints: the reference
   writes the members as they are and ``json.dumps`` fails on numpy
   integers (``ROADMAP.md`` Queue 3);
-- the object table (``t_*``) and the retained keyframe images are not
-  part of geometry mode's state: they are neither written nor read.
+- the retained keyframe images are not written or read: only the offline
+  semi-dense phase (ROADMAP.md Queue 1 item 12) uses them.
 """
 
 from __future__ import annotations
@@ -36,13 +40,19 @@ CHUNKED_VERSION = 2
 
 
 def save_chunked_checkpoint(path: str, tracker) -> None:
-    """Serialize a ChunkedTracker mid-sequence: the carry, the trajectory
-    records, the loop closer's state and the loop RNG's state."""
+    """Serialize a ChunkedTracker mid-sequence: the carry (with the object
+    table and the iForest RNG's state in the object-layer modes), the
+    trajectory records, the loop closer's state and the loop RNG's
+    state."""
     c = tracker.carry
     if c is None:
         raise RuntimeError("nothing to checkpoint: the tracker is not armed")
     d = carry_to_numpy(c)
     arrays = {f"m_{k}": v for k, v in d.pop("m").items()}
+    table, obj_rng = d.pop("table"), d.pop("obj_rng")
+    if table is not None:
+        arrays.update({f"t_{k}": v for k, v in table.items()})
+        arrays["iforest_rng_state"] = obj_rng
     arrays.update({f"c_{k}": v for k, v in d.items()})
     arrays["loop_rng_state"] = tracker.loop_rng.get_state().numpy()
     lc = tracker.loop_closer
@@ -57,6 +67,8 @@ def save_chunked_checkpoint(path: str, tracker) -> None:
         "last_kf_slots": [[int(i), int(s)] for i, s in tracker.last_kf_slots],
         "n_maintenance": int(tracker.n_maintenance),
         "n_relocalized": int(tracker.n_relocalized),
+        "n_object_merges": int(tracker.n_object_merges),
+        "n_object_kills": int(tracker.n_object_kills),
         "loop_checked": int(tracker._loop_checked),
         "localization_only": bool(tracker._localization_only),
         "lc_streaks": ([[[int(s) for s in g], int(n)] for g, n in lc.consistent_streak.items()]
@@ -94,9 +106,22 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
         if tuple(data[k].shape) != shape:
             raise ValueError(f"checkpoint field {k} shape {data[k].shape} != capacity {shape}")
 
-    d = {k: data[f"c_{k}"] for k in ChunkCarry._fields if k != "m"}
+    d = {k: data[f"c_{k}"] for k in ChunkCarry._fields if k not in ("m", "table", "obj_rng")}
     d["m"] = {k[2:]: data[k] for k in data.files if k.startswith("m_")}
+    cfg = tracker.cfg
+    if cfg.flag.objects_enabled:
+        if tuple(data["t_valid"].shape) != (cap.max_objects,):
+            raise ValueError(f"checkpoint field t_valid shape {data['t_valid'].shape} != "
+                             f"capacity {(cap.max_objects,)}")
+        d["table"] = {k[2:]: data[k] for k in data.files if k.startswith("t_")}
+        if "iforest_rng_state" in data:
+            d["obj_rng"] = data["iforest_rng_state"]
     tracker.carry = carry_from_numpy(d, tracker.device)
+    if cfg.flag.objects_enabled and tracker.carry.obj_rng is None:
+        tracker.carry = tracker.carry._replace(
+            obj_rng=torch.Generator().manual_seed(cfg.objects.iforest_seed))
+        warnings.warn("the checkpoint holds no iForest generator state (a reference "
+                      "file): the iForest RNG is seeded afresh from the config")
     tracker.kf_count_host = int(tracker.carry.kf_count)
     tracker.pt_count_host = int(tracker.carry.pt_count)
     tracker.state_host = int(tracker.carry.state)
@@ -105,6 +130,8 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
     tracker.last_kf_slots = [tuple(x) for x in meta["last_kf_slots"]]
     tracker.n_maintenance = meta["n_maintenance"]
     tracker.n_relocalized = meta.get("n_relocalized", 0)
+    tracker.n_object_merges = meta.get("n_object_merges", 0)
+    tracker.n_object_kills = meta.get("n_object_kills", 0)
     tracker._loop_checked = meta["loop_checked"]
     if "loop_rng_state" in data:
         tracker.loop_rng.set_state(torch.as_tensor(data["loop_rng_state"]))

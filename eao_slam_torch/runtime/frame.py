@@ -1,4 +1,7 @@
-"""Per-frame observation bundle (geometry fields only)."""
+"""Per-frame observation bundle: the front end's features and, for the EAO
+object layer, the offline detector's boxes (the reference's class x y w h
+score text contract, src/Tracking.cc:426-499). Geometry mode carries no
+boxes (None)."""
 
 from __future__ import annotations
 
@@ -20,6 +23,10 @@ class Frame(NamedTuple):
     octave: torch.Tensor  # [F] int32
     angle: torch.Tensor   # [F] float32 radians
     valid: torch.Tensor   # [F] bool
+    boxes: Optional[torch.Tensor] = None      # [B, 4] float32 (x, y, w, h)
+    box_class: Optional[torch.Tensor] = None  # [B] int32 (-1 = empty slot)
+    box_score: Optional[torch.Tensor] = None  # [B] float32
+    box_valid: Optional[torch.Tensor] = None  # [B] bool
 
 
 def pack_descriptors(desc: np.ndarray) -> np.ndarray:
@@ -30,9 +37,34 @@ def pack_descriptors(desc: np.ndarray) -> np.ndarray:
     return desc.view(np.int32)
 
 
+def empty_boxes(cfg: SystemConfig):
+    """(boxes, class, score, valid) of a frame without detections."""
+    B = cfg.capacity.max_boxes
+    return (np.zeros((B, 4), np.float32), np.full((B,), -1, np.int32),
+            np.zeros((B,), np.float32), np.zeros((B,), bool))
+
+
+def _t(x, dt, device):
+    return torch.as_tensor(np.asarray(x) if isinstance(x, np.ndarray) else x,
+                           device=device).to(dt)
+
+
+def _box_tensors(cfg: SystemConfig, boxes, device):
+    """(boxes, class, score, valid) as tensors; None gives empty boxes with
+    the object layer on, no boxes without it."""
+    if boxes is None and not cfg.flag.objects_enabled:
+        return (None,) * 4
+    b, c, s, v = empty_boxes(cfg) if boxes is None else boxes
+    return (_t(b, torch.float32, device), _t(c, torch.int32, device),
+            _t(s, torch.float32, device), _t(v, torch.bool, device))
+
+
 def frame_from_arrays(cfg: SystemConfig, kp, desc, octave, valid,
-                      angle: Optional[np.ndarray] = None, device=None) -> Frame:
-    """A Frame from precomputed front-end arrays (numpy or tensors)."""
+                      angle: Optional[np.ndarray] = None, device=None,
+                      boxes=None) -> Frame:
+    """A Frame from precomputed front-end arrays (numpy or tensors);
+    ``boxes`` = (boxes [B, 4], class [B], score [B], valid [B]) or None
+    (a frame without detections)."""
     F = cfg.capacity.max_features
     if kp.shape[0] != F:
         raise ValueError(f"expected {F} feature slots, got {kp.shape[0]}")
@@ -40,19 +72,15 @@ def frame_from_arrays(cfg: SystemConfig, kp, desc, octave, valid,
         desc = pack_descriptors(desc)
     if angle is None:
         angle = np.zeros((F,), np.float32)
-
-    def t(x, dt):
-        return torch.as_tensor(np.asarray(x) if isinstance(x, np.ndarray) else x,
-                               device=device).to(dt)
-
-    return Frame(kp=t(kp, torch.float32), desc=t(desc, torch.int32),
-                 octave=t(octave, torch.int32), angle=t(angle, torch.float32),
-                 valid=t(valid, torch.bool))
+    return Frame(_t(kp, torch.float32, device), _t(desc, torch.int32, device),
+                 _t(octave, torch.int32, device), _t(angle, torch.float32, device),
+                 _t(valid, torch.bool, device), *_box_tensors(cfg, boxes, device))
 
 
-def frame_from_image(cfg: SystemConfig, img, device) -> Frame:
+def frame_from_image(cfg: SystemConfig, img, device, boxes=None) -> Frame:
     """Run the ORB front end on one grayscale image [H, W] (0..255) and
-    package the result, padded or cut to capacity."""
+    package the result, padded or cut to capacity, with ``boxes`` as in
+    ``frame_from_arrays``."""
     img = torch.as_tensor(np.asarray(img, np.float32), device=device)
     F = cfg.capacity.max_features
     feats = extract_orb(
@@ -63,5 +91,5 @@ def frame_from_image(cfg: SystemConfig, img, device) -> Frame:
         border=cfg.orb.edge_threshold,
     )
     kp = undistort_points(cfg.camera, feats.kp[0])
-    return Frame(kp=kp, desc=feats.desc[0], octave=feats.octave[0],
-                 angle=feats.angle[0], valid=feats.valid[0])
+    return Frame(kp, feats.desc[0], feats.octave[0], feats.angle[0], feats.valid[0],
+                 *_box_tensors(cfg, boxes, device))

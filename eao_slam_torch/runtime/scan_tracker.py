@@ -1,17 +1,23 @@
-"""Chunked tracking, geometry mode: C frames per dispatch.
+"""Chunked tracking: C frames per dispatch.
 
 Per frame: motion-model matching + robust pose LM (reference-keyframe
-fallback), local-map matching + pose LM, the keyframe state machine and,
+fallback), local-map matching + pose LM, with the EAO object layer on
+(an object-layer DemoFlag) the object pass on a tracked frame with
+detector boxes (detection statistics, the ensemble cascade, the table
+update; a new object forces a keyframe), the keyframe state machine and,
 on keyframe frames only, keyframe insertion, epipolar triangulation with
 the top covisible neighbours and map-point fusion. Once per chunk that
-inserted a keyframe: windowed Schur BA, point culling and post-BA fusion.
-Between chunks, on the host: map maintenance (keyframe cull and slot
-compaction), loop closing and relocalization after a chunk that ends LOST.
+inserted a keyframe: windowed Schur BA, point culling and post-BA fusion;
+with the object layer, once per chunk: the iForest outlier cull. Between
+chunks, on the host: the object merge pass, map maintenance (keyframe cull
+and slot compaction), loop closing and relocalization after a chunk that
+ends LOST.
 
-The reference runs this as one ``lax.scan`` with a ``lax.cond`` keyframe
-branch; here it is an eager per-frame Python loop whose branches are
-decided on the host (two small readbacks per frame, one more per
-keyframe). Tensors stay on the tracker's device throughout.
+The reference runs this as one ``lax.scan`` with ``lax.cond`` branches;
+here it is an eager per-frame Python loop whose branches are decided on
+the host (two small readbacks per frame, one more per keyframe, one more
+when the object pass ran and the keyframe decision needs its verdict).
+Tensors stay on the tracker's device throughout.
 """
 
 from __future__ import annotations
@@ -25,11 +31,18 @@ from eao_slam_torch.config import SystemConfig, check_supported
 from eao_slam_torch.device import fp32_solvers, resolve_device
 from eao_slam_torch.geometry import se3
 from eao_slam_torch.geometry.camera import undistort_points
+from eao_slam_torch.objects.association import (
+    N_OBJ_SAMPLE, apply_frame_update, chunk_iforest_cull, compute_detection_stats)
+from eao_slam_torch.objects.iforest import draw_iforest, psi_depth_for
+from eao_slam_torch.objects.merge import run_merge_pass
+from eao_slam_torch.objects.resolve import resolve_cascade
+from eao_slam_torch.objects.state import ObjectTable, empty_object_table
+from eao_slam_torch.objects.stats import make_t_table
 from eao_slam_torch.ops import matching
 from eao_slam_torch.ops.orb import extract_orb, scale_sigma2
 from eao_slam_torch.runtime import tracking_kernels as tk
 from eao_slam_torch.runtime.compaction import covisibility, cull_and_compact
-from eao_slam_torch.runtime.frame import Frame
+from eao_slam_torch.runtime.frame import Frame, empty_boxes
 from eao_slam_torch.runtime.local_mapping import fuse_into_keyframe, triangulate_with_neighbor
 from eao_slam_torch.runtime.loop_closing import LoopCloser, kf_signature, kf_signatures
 from eao_slam_torch.runtime.map_state import MapState
@@ -64,6 +77,8 @@ class ChunkCarry(NamedTuple):
     kf_count: int              # monotonic keyframe slot allocator
     pt_count: int              # monotonic point slot allocator
     frame_id: int
+    table: Optional[ObjectTable] = None       # object landmarks (object layer on)
+    obj_rng: Optional[torch.Generator] = None  # host generator of the iForest draws
 
 
 class ChunkOutputs(NamedTuple):
@@ -85,6 +100,10 @@ class FrameBatch(NamedTuple):
     valid: torch.Tensor
     timestamp: torch.Tensor  # [C]
     active: Optional[torch.Tensor] = None  # [C] bool; None = all live
+    boxes: Optional[torch.Tensor] = None      # [C, B, 4]; None = no detections
+    box_class: Optional[torch.Tensor] = None  # [C, B]
+    box_score: Optional[torch.Tensor] = None  # [C, B]
+    box_valid: Optional[torch.Tensor] = None  # [C, B]
 
 
 # ---------------------------------------------------------------------------
@@ -209,18 +228,44 @@ def _cull_points(m: MapState, newest_slot: int) -> MapState:
 # ---------------------------------------------------------------------------
 
 def make_chunk_step(cfg: SystemConfig):
-    """Per-frame step closed over the config: step(carry, frame, ts) ->
-    (carry, (T, state, n_inliers, is_kf, kf_count, pt_count))."""
+    """Per-frame step closed over the config: step(carry, frame, ts,
+    has_boxes) -> (carry, (T, state, n_inliers, is_kf, kf_count, pt_count)).
+    ``has_boxes`` (host bool: the frame has a valid detector box) gates the
+    object pass."""
     check_supported(cfg)
     cam = cfg.camera
     tcfg = cfg.tracking
     mcfg = cfg.mapping
+    flag = cfg.flag
     n_tri_neighbors = min(8, mcfg.triangulation_neighbors)
     ratio32 = np.float32(tcfg.kf_tracked_ratio)
     scale2_by_device = {}
+    t_table_by_device = {}
+
+    def object_pass(m: MapState, table: ObjectTable, T, frame: Frame, cur_pt, frame_id):
+        """The object work of TrackWithMotionModel (src/Tracking.cc:1246-1647)
+        on the device: returns (m, table, appear_new as a device bool)."""
+        dev = m.pt_pos.device
+        if dev not in t_table_by_device:
+            t_table_by_device[dev] = torch.as_tensor(make_t_table(), device=dev)
+        det = compute_detection_stats(
+            cam, m.pt_pos, m.pt_valid, m.pt_object_id, table, T, frame.kp, cur_pt,
+            frame.boxes, frame.box_class, frame.box_score, frame.box_valid, frame_id)
+        res = resolve_cascade(
+            det, table, t_table_by_device[dev], frame.boxes, cfg.objects.proj_iou_threshold,
+            use_iou=flag.use_iou, use_nonparam=flag.use_nonparam, use_ttest=flag.use_ttest,
+            img_w=int(cam.width), img_h=int(cam.height),
+            min_points=cfg.objects.min_points_per_object)
+        # the iForest cull runs once per chunk (chunk_iforest_cull in
+        # track_chunk), as in the reference package's chunked tracker
+        m, table = apply_frame_update(cam, m, table, det, res.assoc, res.new_slots,
+                                      frame.boxes, frame.box_class, T, frame.kp, cur_pt,
+                                      frame_id)
+        table = table._replace(re_obj=table.re_obj + res.re_inc)
+        return m, table, (res.new_slots >= 0).any()
 
     def kf_branch(m: MapState, kf_count, pt_count, frame: Frame, ts, frame_id, T, cur_pt,
-                  scale2, scale_factors):
+                  scale2, scale_factors, by_object):
         K = m.kf_pose.shape[0]
         P = m.pt_pos.shape[0]
         dev = m.pt_pos.device
@@ -228,7 +273,7 @@ def make_chunk_step(cfg: SystemConfig):
         upd = dict(kf_pose=T, kf_valid=True, kf_timestamp=ts, kf_frame_id=frame_id,
                    kf_kp=frame.kp, kf_desc=frame.desc, kf_octave=frame.octave,
                    kf_angle=frame.angle, kf_kp_valid=frame.valid, kf_pt_idx=cur_pt,
-                   kf_by_object=False)
+                   kf_by_object=by_object)
         new = {}
         for name, val in upd.items():
             arr = getattr(m, name).clone()
@@ -271,7 +316,7 @@ def make_chunk_step(cfg: SystemConfig):
         m = m._replace(kf_pt_idx=kf_pt_idx)
         return m, kf_count + 1, pt_count, T, fused
 
-    def step(carry: ChunkCarry, frame: Frame, ts: float):
+    def step(carry: ChunkCarry, frame: Frame, ts: float, has_boxes: bool = False):
         m = carry.m
         dev = m.pt_pos.device
         K = m.kf_pose.shape[0]
@@ -280,7 +325,7 @@ def make_chunk_step(cfg: SystemConfig):
             scale2_by_device[dev] = (s2, torch.sqrt(s2))
         scale2, scale_factors = scale2_by_device[dev]
         frame_id = carry.frame_id + 1
-        kp, desc, octave, angle, valid = frame
+        kp, desc, octave, angle, valid = frame[:5]
         ref = min(carry.kf_count - 1, K - 1)
 
         def ref_kf():
@@ -312,20 +357,28 @@ def make_chunk_step(cfg: SystemConfig):
         T, cur_pt = r2.T, r2.cur_pt
         tracked = n2 >= tcfg.min_tracked_for_ok
 
-        # keyframe policy (Tracking::NeedNewKeyFrame)
+        table = carry.table
+        appear_new = False
+        if table is not None and tracked and has_boxes:
+            m, table, appear_new = object_pass(m, table, T, frame, cur_pt, frame_id)
+
+        # keyframe policy (Tracking::NeedNewKeyFrame; a new object landmark
+        # forces a keyframe, src/Tracking.cc:1850-1897)
         frames_since = carry.frames_since_kf + 1
         peak = max(carry.peak_since_kf, n2)
         base = max(carry.ref_kf_tracked, peak, 1)
         c1 = frames_since >= tcfg.max_frames_between_kf
         c2 = n2 < ratio32 * np.float32(base)
-        need_kf = (tracked and (c1 or c2) and n2 > tcfg.min_matches_ref_kf
-                   and carry.kf_count < K)
+        may_kf = tracked and n2 > tcfg.min_matches_ref_kf and carry.kf_count < K
+        need_kf = may_kf and (c1 or c2)
+        if may_kf and not need_kf and torch.is_tensor(appear_new):
+            need_kf = bool(appear_new)     # the object pass's one readback
 
         kf_count, pt_count = carry.kf_count, carry.pt_count
         if need_kf:
             m, kf_count, pt_count, T, cur_pt = kf_branch(
                 m, kf_count, pt_count, frame, ts, frame_id, T, cur_pt,
-                scale2, scale_factors)
+                scale2, scale_factors, appear_new)
         vel_ok = tracked and not need_kf and carry.state == OK
         velocity = (se3.compose(T, se3.inverse(carry.T_last)) if vel_ok
                     else torch.eye(3, 4, dtype=torch.float32, device=dev))
@@ -342,6 +395,7 @@ def make_chunk_step(cfg: SystemConfig):
             ref_kf_tracked=n2 if need_kf else carry.ref_kf_tracked,
             peak_since_kf=n2 if need_kf else peak,
             kf_count=kf_count, pt_count=pt_count, frame_id=frame_id,
+            table=table, obj_rng=carry.obj_rng,
         )
         return new_carry, (T, state, n2, need_kf, kf_count, pt_count)
 
@@ -351,11 +405,13 @@ def make_chunk_step(cfg: SystemConfig):
 def make_track_chunk(cfg: SystemConfig):
     """track_chunk(carry, batch) -> (carry, ChunkOutputs): the per-frame
     step over the chunk, then (iff a keyframe was inserted) the windowed
-    BA, point culling and post-BA fusion into the newest keyframe."""
+    BA, point culling and post-BA fusion into the newest keyframe, then,
+    with the object layer, the chunk-rate iForest cull."""
     step = make_chunk_step(cfg)
     cam = cfg.camera
     W = cfg.mapping.local_ba_kf_window
     Pl = cfg.capacity.local_ba_points
+    psi, depth = psi_depth_for(N_OBJ_SAMPLE)
 
     def track_chunk(carry: ChunkCarry, batch: FrameBatch):
         fp32_solvers()
@@ -363,15 +419,20 @@ def make_track_chunk(cfg: SystemConfig):
         active = (np.ones(C, bool) if batch.active is None
                   else batch.active.cpu().numpy().astype(bool))
         ts_host = batch.timestamp.cpu().numpy()
+        box_fields = (None,) * 4
+        has_boxes = np.zeros(C, bool)
+        if carry.table is not None and batch.boxes is not None:
+            box_fields = (batch.boxes, batch.box_class, batch.box_score, batch.box_valid)
+            has_boxes = batch.box_valid.any(1).cpu().numpy()
         outs = []
         for i in range(C):
             if not active[i]:
                 outs.append((carry.T_last, carry.state, 0, False,
                              carry.kf_count, carry.pt_count))
                 continue
-            frame = Frame(batch.kp[i], batch.desc[i], batch.octave[i],
-                          batch.angle[i], batch.valid[i])
-            carry, out = step(carry, frame, float(ts_host[i]))
+            frame = Frame(batch.kp[i], batch.desc[i], batch.octave[i], batch.angle[i],
+                          batch.valid[i], *(None if x is None else x[i] for x in box_fields))
+            carry, out = step(carry, frame, float(ts_host[i]), bool(has_boxes[i]))
             outs.append(out)
         is_kf = np.array([o[3] for o in outs], bool)
         if is_kf.any():
@@ -391,6 +452,15 @@ def make_track_chunk(cfg: SystemConfig):
                 kf_pt_idx[newest] = fused
                 m = m._replace(kf_pt_idx=kf_pt_idx)
             carry = carry._replace(m=m)
+        if carry.table is not None:
+            # iForest outlier cull over every object updated this chunk
+            # (per frame in the C++ reference, src/Object.cc:1202-1309;
+            # once per chunk in the reference package)
+            gen = carry.obj_rng
+            m, table = chunk_iforest_cull(
+                cam, carry.m, carry.table, carry.T_last, carry.frame_id - C + 1,
+                lambda mask: draw_iforest(gen, mask, psi, depth), depth)
+            carry = carry._replace(m=m, table=table)
         T = torch.stack([o[0] for o in outs]).cpu().numpy()
         return carry, ChunkOutputs(
             T=T,
@@ -405,9 +475,10 @@ def make_track_chunk(cfg: SystemConfig):
 
 
 def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
-                  active=None) -> FrameBatch:
+                  active=None, boxes=None) -> FrameBatch:
     """ORB front end over a chunk of raw images [C, H, W] uint8 (one FAST
-    kernel launch for all pyramid levels of the whole chunk)."""
+    kernel launch for all pyramid levels of the whole chunk); ``boxes``:
+    (boxes, class, score, valid) tensors [C, B, ...] or None."""
     F = cfg.capacity.max_features
     feats = extract_orb(
         images_u8.to(torch.float32), n_features=F, n_levels=cfg.orb.n_levels,
@@ -421,14 +492,17 @@ def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
         octave=feats.octave, angle=feats.angle, valid=feats.valid,
         timestamp=torch.as_tensor(np.asarray(timestamps, np.float32)),
         active=active,
+        **({} if boxes is None else dict(zip(("boxes", "box_class", "box_score", "box_valid"),
+                                             boxes))),
     )
 
 
 def make_extract_track(cfg: SystemConfig, track_chunk):
-    """fn(carry, images_u8 [C, H, W], timestamps [C], active=None): raw
-    images of one chunk through ORB extraction and chunk tracking."""
-    def extract_track(carry, images_u8, timestamps, active=None):
-        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active))
+    """fn(carry, images_u8 [C, H, W], timestamps [C], active=None,
+    boxes=None): raw images of one chunk (and their detector boxes)
+    through ORB extraction and chunk tracking."""
+    def extract_track(carry, images_u8, timestamps, active=None, boxes=None):
+        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active, boxes))
 
     return extract_track
 
@@ -471,6 +545,8 @@ class ChunkedTracker:
         self.loop_closer = LoopCloser(cfg) if cfg.tracking.enable_loop_closing else None
         self.loop_rng = torch.Generator().manual_seed(cfg.seed + 7)
         self._loop_checked = 0    # keyframes already run through detection
+        self.n_object_merges = 0  # object pairs merged between chunks
+        self.n_object_kills = 0   # objects deleted as false positives between chunks
 
     # -- bootstrap ------------------------------------------------------
 
@@ -503,6 +579,13 @@ class ChunkedTracker:
             kf_count=len(t.kf_slots), pt_count=int(t.n_points),
             frame_id=int(t.frame_id),
         )
+        if self.cfg.flag.objects_enabled:
+            # the reference's object pass runs only once the map exists, so
+            # the table starts empty (tracker.py:410-421); the iForest draws
+            # come from a host generator seeded from the config
+            self.carry = self.carry._replace(
+                table=empty_object_table(self.cfg.capacity.max_objects, device=self.device),
+                obj_rng=torch.Generator().manual_seed(self.cfg.objects.iforest_seed))
         self.kf_count_host = len(t.kf_slots)
         self.pt_count_host = int(t.n_points)
         self.state_host = OK
@@ -522,10 +605,12 @@ class ChunkedTracker:
             ts = ts[: int(batch.active.sum())]
         return self._after_chunk(outs, ts, kf_before)
 
-    def track_images(self, images_u8, timestamps) -> ChunkOutputs:
+    def track_images(self, images_u8, timestamps, boxes=None, box_class=None,
+                     box_score=None, box_valid=None) -> ChunkOutputs:
         """Up to `chunk` raw grayscale images through ORB extraction and
-        chunk tracking. Short batches are padded with the last image and
-        masked inactive."""
+        chunk tracking, with their detector boxes ([n, B, ...] arrays; none
+        given means no detections). Short batches are padded with the last
+        image and masked inactive."""
         if self.carry is None:
             raise RuntimeError("call bootstrap() until it returns True")
         C = self.chunk
@@ -533,17 +618,28 @@ class ChunkedTracker:
         n = int(imgs.shape[0])
         if not 0 < n <= C:
             raise ValueError(f"batch of {n} images vs chunk={C}")
-        ts = np.asarray(timestamps, np.float32)
+
+        def pad(a):
+            a = np.asarray(a)
+            return a if n == C else np.concatenate([a, np.repeat(a[-1:], C - n, 0)])
+
+        ts = pad(np.asarray(timestamps, np.float32))
+        imgs = pad(imgs)
         active = None
         if n < C:
-            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], C - n, 0)])
-            ts = np.concatenate([ts, np.repeat(ts[-1:], C - n)])
             act = np.zeros((C,), bool)
             act[:n] = True
             active = torch.as_tensor(act)
+        box_t = None
+        if self.cfg.flag.objects_enabled:
+            if boxes is None:
+                boxes, box_class, box_score, box_valid = (
+                    np.broadcast_to(x, (n,) + x.shape) for x in empty_boxes(self.cfg))
+            box_t = tuple(torch.as_tensor(pad(x), device=self.device)
+                          for x in (boxes, box_class, box_score, box_valid))
         kf_before = self.kf_count_host
         self.carry, outs = self._extract_track(
-            self.carry, torch.as_tensor(imgs, device=self.device), ts, active)
+            self.carry, torch.as_tensor(imgs, device=self.device), ts, active, box_t)
         return self._after_chunk(outs, np.asarray(timestamps, np.float32), kf_before)
 
     def _after_chunk(self, outs: ChunkOutputs, ts, kf_before: int) -> ChunkOutputs:
@@ -568,9 +664,23 @@ class ChunkedTracker:
         return outs
 
     def _between_chunk_passes(self):
+        self._maybe_merge_objects()
         self._maybe_maintain()
         self._maybe_close_loops()
         self._maybe_relocalize()
+
+    def _maybe_merge_objects(self):
+        """Object merge and overlap resolution between chunks
+        (MergePotentialAssObjs + DealTwoOverlapObjs,
+        src/LocalMapping.cc:799-882): one readback of the pair statistics,
+        the decisions on the host, the rewrites on the device."""
+        c = self.carry
+        if c is None or c.table is None or self._localization_only:
+            return
+        m, table, merged, killed = run_merge_pass(c.m, c.table)
+        self.carry = c._replace(m=m, table=table)
+        self.n_object_merges += merged
+        self.n_object_kills += killed
 
     def _maybe_maintain(self):
         """When the monotonic allocators near capacity (within max(8,
@@ -706,6 +816,12 @@ class ChunkedTracker:
     def map(self) -> MapState:
         return self.carry.m if self.armed else self.inner.map
 
+    @property
+    def obj_table(self) -> Optional[ObjectTable]:
+        """The object landmark table (None in geometry mode or before the
+        tracker is armed)."""
+        return self.carry.table if self.armed else None
+
     def frame_trajectory(self):
         recs = [(t, T) for t, T, s in self.records if T is not None]
         ts = np.array([t for t, _ in recs])
@@ -775,12 +891,8 @@ class _LoopView:
 
 
 def batch_from_frames(frames, timestamps) -> FrameBatch:
-    """Stack a list of Frame into one chunk."""
+    """Stack a list of Frame (features and boxes) into one chunk."""
     return FrameBatch(
-        kp=torch.stack([f.kp for f in frames]),
-        desc=torch.stack([f.desc for f in frames]),
-        octave=torch.stack([f.octave for f in frames]),
-        angle=torch.stack([f.angle for f in frames]),
-        valid=torch.stack([f.valid for f in frames]),
         timestamp=torch.as_tensor(np.asarray(timestamps, np.float32)),
-    )
+        **{f: torch.stack([getattr(fr, f) for fr in frames]) for f in Frame._fields
+           if getattr(frames[0], f) is not None})

@@ -1,11 +1,13 @@
-"""System facade for geometry-mode chunked tracking.
+"""System facade for chunked tracking, in geometry mode or with the EAO
+object layer (``flag=DemoFlag.EAO`` or another object-layer flag).
 
-``System(cfg).track_monocular(img, t)`` bootstraps two-view initialization
-frame by frame, then buffers raw images into chunks and dispatches each
-full chunk through ORB extraction and chunk tracking.
-``track_frame(frame, t)`` is the same with pre-extracted front-end output
-(the feature-level seam). After every chunk the tracker runs its
-between-chunk passes: map maintenance, loop closing and relocalization.
+``System(cfg).track_monocular(img, t, boxes=...)`` bootstraps two-view
+initialization frame by frame, then buffers raw images (and their offline
+detector boxes) into chunks and dispatches each full chunk through ORB
+extraction and chunk tracking. ``track_frame(frame, t)`` is the same with
+pre-extracted front-end output (the feature-level seam; boxes ride on the
+Frame). After every chunk the tracker runs its between-chunk passes:
+object merge, map maintenance, loop closing and relocalization.
 Poses come back at chunk granularity; ``flush()`` dispatches a partial
 tail chunk and ``frame_trajectory()`` returns every tracked pose.
 ``save_checkpoint`` / ``load_checkpoint`` stop and resume a run.
@@ -21,14 +23,14 @@ import numpy as np
 import torch
 
 from eao_slam_torch.config import DemoFlag, SystemConfig, check_supported, tum3_config
-from eao_slam_torch.runtime.frame import Frame, frame_from_image
+from eao_slam_torch.runtime.frame import Frame, empty_boxes, frame_from_image
 from eao_slam_torch.runtime.scan_tracker import ChunkedTracker, batch_from_frames
 
 OK = 2
 
 
 class System:
-    """Monocular SLAM engine (System::System + TrackMonocular), geometry mode."""
+    """Monocular object SLAM engine (System::System + TrackMonocular)."""
 
     def __init__(self, config: Optional[SystemConfig] = None,
                  flag: DemoFlag | str = DemoFlag.NONE, chunked: bool = True,
@@ -43,30 +45,33 @@ class System:
         # Queue 1 item 12) fills it
         self._kf_images: dict = {}
         # chunk buffers (image path and feature path: one per System)
-        self._img_buf: list = []     # (img u8, ts)
+        self._img_buf: list = []     # (img u8, ts, boxes or None)
         self._frame_buf: list = []   # (Frame, ts)
 
     @property
     def _armed(self) -> bool:
         return self.tracker.carry is not None
 
-    def track_monocular(self, img, timestamp: float) -> Optional[np.ndarray]:
-        """Feed one grayscale image [H, W]. Returns T_cw [3, 4] when a pose
-        is known at this call (bootstrap, or the last frame of a chunk just
-        dispatched), else None."""
+    def track_monocular(self, img, timestamp: float, boxes=None) -> Optional[np.ndarray]:
+        """Feed one grayscale image [H, W] and, with the object layer, its
+        detector boxes: (boxes [B, 4] x y w h, class [B], score [B], valid
+        [B]) in the offline-detector contract (``io.tum.load_yolo_boxes``).
+        Returns T_cw [3, 4] when a pose is known at this call (bootstrap, or
+        the last frame of a chunk just dispatched), else None."""
         if self._armed:
             if self._frame_buf:
                 raise RuntimeError("mixed track_frame / track_monocular")
-            self._img_buf.append((np.asarray(img, np.uint8), float(timestamp)))
+            self._img_buf.append((np.asarray(img, np.uint8), float(timestamp), boxes))
             if len(self._img_buf) >= self.tracker.chunk:
                 return self._flush_images()
             return None
-        return self.track_frame(frame_from_image(self.cfg, img, self.device), timestamp)
+        return self.track_frame(frame_from_image(self.cfg, img, self.device, boxes=boxes),
+                                timestamp)
 
     def track_frame(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
         """Feed a pre-extracted Frame (``runtime.frame.frame_from_arrays``).
         Returns T_cw [3, 4] as ``track_monocular`` does."""
-        frame = Frame(*(x.to(self.device) for x in frame))
+        frame = Frame(*(None if x is None else x.to(self.device) for x in frame))
         if self._armed:
             if self._img_buf:
                 raise RuntimeError("mixed track_frame / track_monocular")
@@ -84,7 +89,12 @@ class System:
             return None
         imgs = np.stack([b[0] for b in buf])
         ts = np.asarray([b[1] for b in buf], np.float32)
-        outs = self.tracker.track_images(imgs, ts)
+        kw = {}
+        if self.cfg.flag.objects_enabled:
+            bx = [empty_boxes(self.cfg) if b[2] is None else b[2] for b in buf]
+            kw = {k: np.stack([np.asarray(b[i]) for b in bx]) for i, k in
+                  enumerate(("boxes", "box_class", "box_score", "box_valid"))}
+        outs = self.tracker.track_images(imgs, ts, **kw)
         n = len(buf)
         return np.asarray(outs.T[n - 1]) if int(outs.state[n - 1]) == OK else None
 

@@ -155,3 +155,41 @@ def test_mismatched_checkpoint_rejected(reference_file):
         tck.load_chunked_checkpoint(path, other)
     with pytest.raises(RuntimeError, match="not armed"):
         tck.save_chunked_checkpoint(path + ".x", tst.ChunkedTracker(_tcfg(), device="cpu"))
+
+
+def test_eao_checkpoint_round_trips_its_object_table(tmp_path):
+    """An EAO tracker writes its object table as the reference's ``t_*``
+    arrays (and the iForest generator's state under a key of its own) and
+    reads both back; a geometry tracker writes no table."""
+    from eao_slam_torch.objects.state import ObjectTable
+
+    cfg = _tcfg().replace(flag=DemoFlag.EAO)
+    sysm = System(cfg, chunk=5, device="cpu")
+    _drive(sysm, _frames(cfg, 0, 12))
+    sysm.flush()
+    tab = sysm.tracker.carry.table
+    tab = tab._replace(valid=tab.valid.clone(), n_obs=tab.n_obs.clone(),
+                       center=tab.center.clone())
+    tab.valid[[1, 4]] = True
+    tab.n_obs[1] = 7
+    tab.center[4] = 1.5
+    sysm.tracker.carry = sysm.tracker.carry._replace(table=tab)
+    sysm.tracker.carry.obj_rng.manual_seed(99)
+    path = str(tmp_path / "eao.ckpt")
+    sysm.save_checkpoint(path)
+    data = np.load(path)
+    assert {f"t_{f}" for f in ObjectTable._fields} <= set(data.files)
+    assert "iforest_rng_state" in data.files
+    for f in ObjectTable._fields:
+        np.testing.assert_array_equal(data[f"t_{f}"], getattr(tab, f).numpy(), err_msg=f)
+    back = System(cfg, chunk=5, device="cpu")
+    back.load_checkpoint(path)
+    for f in ObjectTable._fields:
+        np.testing.assert_array_equal(getattr(back.tracker.obj_table, f).numpy(),
+                                      getattr(tab, f).numpy(), err_msg=f)
+    assert back.tracker.carry.obj_rng.get_state().equal(sysm.tracker.carry.obj_rng.get_state())
+
+    geo = System(_tcfg(), chunk=5, device="cpu")
+    _drive(geo, _frames(geo.cfg, 0, 12))
+    geo.save_checkpoint(str(tmp_path / "geo.ckpt"))
+    assert not any(k.startswith("t_") for k in np.load(str(tmp_path / "geo.ckpt")).files)

@@ -210,3 +210,30 @@ def test_maybe_maintain_remaps_everything_like_the_reference():
     a, b = map_state_to_numpy(tt.carry.m), jax_carry_numpy(jt.carry)["m"]
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_compaction_keeps_object_membership():
+    """Slot compaction moves each point's object id and votes with the
+    point (and the object-created keyframe flag with its keyframe), as in
+    the reference: the table of objects itself holds no slot."""
+    d = fabricated_map(0)
+    rng = np.random.default_rng(9)
+    live = np.nonzero(d["pt_valid"])[0]
+    d["pt_object_id"][live] = rng.integers(-1, 4, live.size)
+    d["pt_obj_votes"][live] = np.where(d["pt_object_id"][live] >= 0,
+                                       rng.integers(1, 12, live.size), 0)
+    kf_count, pt_count = 14, int(d["pt_valid"].sum())
+    ref = jcomp.cull_and_compact(_jmap(d), jnp.int32(kf_count), jnp.int32(pt_count),
+                                 n_levels=L, redundancy=0.9)
+    got = tcomp.cull_and_compact(map_state_from_numpy(d, "cpu"), kf_count, pt_count,
+                                 n_levels=L, redundancy=0.9)
+    a = map_state_to_numpy(got.m)
+    for k in ("pt_object_id", "pt_obj_votes", "kf_by_object"):
+        np.testing.assert_array_equal(a[k], np.asarray(getattr(ref.m, k)), err_msg=k)
+    remap = n(got.pt_remap)
+    kept = np.nonzero(remap >= 0)[0]
+    assert kept.size > 0 and (d["pt_object_id"][kept] >= 0).any()
+    np.testing.assert_array_equal(a["pt_object_id"][remap[kept]], d["pt_object_id"][kept])
+    np.testing.assert_array_equal(a["pt_obj_votes"][remap[kept]], d["pt_obj_votes"][kept])
+    kf_remap = n(got.kf_remap)
+    assert kf_remap[8] >= 0 and a["kf_by_object"][kf_remap[8]]

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, no reference package, the card by default,
-the default configuration builds, and the unported modes refuse loudly."""
+the default configuration builds, the object-layer flags without lines
+construct, and the unported modes refuse loudly."""
 
 import subprocess
 import sys
@@ -17,8 +18,15 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib, pkgutil\n"
         "import eao_slam_torch\n"
-        "for m in pkgutil.walk_packages(eao_slam_torch.__path__, 'eao_slam_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(eao_slam_torch.__path__, "
+        "'eao_slam_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'eao_slam_torch.io.tum', 'eao_slam_torch.objects.association', "
+        "'eao_slam_torch.objects.resolve', 'eao_slam_torch.objects.merge', "
+        "'eao_slam_torch.objects.iforest', 'eao_slam_torch.objects.stats', "
+        "'eao_slam_torch.objects.boxes', 'eao_slam_torch.objects.state'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('eao_slam_tpu')]\n"
@@ -61,16 +69,35 @@ def test_default_configuration_builds():
     assert System(off, device="cpu").tracker.loop_closer is None
 
 
-@pytest.mark.parametrize("case", ["flag", "per_frame"])
+@pytest.mark.parametrize("case", ["LineAndiForest", "Full", "per_frame"])
 def test_unported_modes_raise(case):
+    """The line-enabled flags need ops/lines.py and objects/yaw.py (item
+    10); the interactive tracker is item 13."""
     from eao_slam_torch.system import System
 
-    if case == "flag":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            System(_cfg(flag=DemoFlag.EAO), device="cpu")
-    else:
+    if case == "per_frame":
         with pytest.raises(NotImplementedError, match="item 13"):
             System(_cfg(), chunked=False, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            System(_cfg(flag=DemoFlag(case)), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            System(flag=case, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["EAO", "iForest", "NA", "IoU", "NP"])
+def test_object_flags_construct(flag):
+    """The object-layer flags without lines construct the chunked path, by
+    configuration or by the flag argument, with their cascade stages."""
+    from eao_slam_torch.system import System
+
+    for sysm in (System(_cfg(flag=DemoFlag(flag)), device="cpu"), System(flag=flag, device="cpu")):
+        assert sysm.cfg.flag.objects_enabled and not sysm.cfg.flag.use_yaw_lines
+        assert sysm.tracker.obj_table is None          # the table arms with the tracker
+    f = DemoFlag(flag)
+    assert (f.use_iou, f.use_nonparam, f.use_ttest) == {
+        "EAO": (True, True, True), "iForest": (True, True, True), "NA": (False, False, False),
+        "IoU": (True, False, False), "NP": (False, True, False)}[flag]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -94,12 +121,16 @@ def test_config_matches_reference_fields_and_defaults():
     from eao_slam_torch import config as tc
     from eao_slam_tpu import config as jc
 
-    for name in ("OrbConfig", "MatcherConfig", "TrackingConfig", "MappingConfig",
-                 "CapacityConfig"):
+    for name in ("OrbConfig", "MatcherConfig", "TrackingConfig", "ObjectConfig",
+                 "MappingConfig", "CapacityConfig"):
         ours = {f.name: f.default for f in dataclasses.fields(getattr(tc, name))}
         ref = {f.name: f.default for f in dataclasses.fields(getattr(jc, name))}
         for field, default in ours.items():
             assert ref[field] == default, (name, field)
     assert {f.value for f in tc.DemoFlag} == {f.value for f in jc.DemoFlag}
+    for f in tc.DemoFlag:
+        j = jc.DemoFlag(f.value)
+        for prop in ("objects_enabled", "use_iou", "use_nonparam", "use_ttest", "use_yaw_lines"):
+            assert getattr(f, prop) == getattr(j, prop), (f, prop)
     assert tc.tum3_config().seed == jc.tum3_config().seed
     assert tc.tum3_config().camera == tuple(jc.tum3_config().camera)

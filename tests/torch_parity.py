@@ -99,10 +99,14 @@ def jax_bootstrap(n_next: int = 8):
     return tr, frames, ts[i:i + n_next], i
 
 
-def jax_carry_numpy(c) -> dict:
-    """A reference ChunkCarry as the dict of numpy arrays convert.py takes."""
+def jax_carry_numpy(c, with_table: bool = False) -> dict:
+    """A reference ChunkCarry as the dict of numpy arrays convert.py takes;
+    its object table too when ``with_table`` (the object-layer modes: in
+    geometry mode the reference carries a one-slot dummy)."""
     d = {k: np.asarray(v) for k, v in c._asdict().items() if k not in ("m", "table", "obj_key")}
     d["m"] = {k: np.asarray(v) for k, v in c.m._asdict().items()}
+    if with_table:
+        d["table"] = {k: np.asarray(v) for k, v in c.table._asdict().items()}
     return d
 
 
