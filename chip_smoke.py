@@ -48,8 +48,8 @@ Phases, in order; any failure exits non-zero:
   8. the EAO object layer (bench.py's EAO mode): DemoFlag.EAO at the main
      path's widths with 8 detector boxes a frame (the port's project_boxes
      of the scene's three cuboids) and 32 object slots, through
-     System.track_monocular(..., boxes=...) on the same arc, seeds 12345
-     and 1-6. Gates, on every run: it tracks >= 90 % of its timed frames,
+     System.track_monocular(..., boxes=...) on the same arc and seeds.
+     Gates, on every run: it tracks >= 90 % of its timed frames,
      ends with >= 3 live objects, among them one of each scene object's
      class (bench.py's gate, and every scene object found), stays under
      the ATE limit, and each scene object's centre error stays under the
@@ -58,14 +58,39 @@ Phases, in order; any failure exits non-zero:
      keyframes that observed the object, at the map's own scale
      (eao_slam_torch.io.trajectory.map_object_errors). The limits are 1.5
      times the JAX reference's own EAO spread (reference_ate_spread.py
-     --flag EAO, on the CPU). The FAST kernel's launches are counted on
+     --flag EAO, on the CPU; the object limit from its worst on seeds
+     12345 and 1-6). The FAST kernel's launches are counted on
      the default seed's run. The object layer's cost per chunk is the
      default seed's EAO chunk time less its geometry chunk time (printed
      with how far the two runs' timed poses differ); the chunk-rate
      iForest cull is also timed alone, on the default seed's final state.
      Each run also prints, ungated, the object measure of the reference's
      tests/test_objects_e2e.py (after one sim3 of the keyframe trajectory);
-  9. print the host-clock time of each between-chunk pass (after a
+  9. line mode (DemoFlag.LINE_IFOREST: the object layer with line detection
+     in the chunk's front end and line-alignment yaw) at the EAO phase's
+     widths with 128 line slots, the same arc, seeds 12345 and 1-6, the
+     same protocol. Gates, on every run: as the EAO phase's, with limits
+     1.5 times the reference's line-mode spread (reference_ate_spread.py
+     --flag LineAndiForest), and yaw votes above 0; one frame's yaw pass
+     on the default seed's final state launches kernels, and neither
+     synchronises with the host nor copies to or from it (a
+     torch.profiler trace). Printed, not gated:
+     each object with 3 or more votes whose yaw lies beyond
+     LINE_YAW_LIMIT_DEG of the scene's 0 (its cuboids are axis-aligned in
+     the first camera's frame; see the constant). Also printed: valid lines
+     per frame, the detector's CUDA-event time and
+     kernel launches per chunk, the line layer's cost (the default seed's
+     line chunk less its EAO chunk), the three modes' fps and the FAST
+     kernel's launches on this path. Then the ground alignment: the first
+     96 frames of the arc with every camera tilted (8 degrees of roll, -6
+     of pitch), rendered again, the ground truth written as a TUM file
+     and fed through System.set_groundtruth: the first keyframe must equal
+     the initializer frame's true camera-from-world pose to 1e-4 and the
+     yaws must hold the reference's own limit on that input, about
+     gravity. Last, the detector on the card against the detector on the
+     CPU on frames 0, 60 and 120: valid counts within 2, >= 90 % of the
+     card's segments within 1 px of a CPU segment;
+ 10. print the host-clock time of each between-chunk pass (after a
      synchronise; medians where a pass repeats) and its share of a chunk,
      the card's name and power limit, one JSON line describing every
      kernel, and last the JSON result line.
@@ -122,6 +147,40 @@ EAO_MEDIAN_ATE_LIMIT_M = 1.5 * 0.1360
 EAO_OBJECT_LIMIT_M = 1.5 * 0.4613
 N_BOXES = 8
 MIN_OBJECTS = 3
+
+# line phase: JAX reference in LineAndiForest mode on the CPU
+# (reference_ate_spread.py --flag LineAndiForest) over seeds 12345 and 1-19:
+# sim3 ATE worst 0.1847 m (seed 2), median 0.1360 m; 128/128 tracked and 3
+# live objects, one of each scene class, on every seed; the worst
+# object-centre error over seeds 12345 and 1-6 0.4586 m (seed 5); the
+# largest |yaw| an object with 3 or more votes elected, on those seven
+# seeds as on all twenty, 7.7586 degrees (a grid sample; the others
+# elected 1.55 or 4.66). The port is held to 1.5 times each distance. Its
+# elected yaws on the arc are printed against the larger of 8 degrees (the
+# reference's own gate, tests/test_system_chunked.py) and the reference's
+# worst plus 3.1 degrees, and not gated: on the card seed 5 elects -45
+# degrees, and the reference's yaw functions elect the same on every one of
+# that run's recorded yaw calls (port_ate_spread.py --record-yaw, then
+# reference_ate_spread.py --replay-yaw; PERF.md, PR 6).
+LINE_ATE_LIMIT_M = 1.5 * 0.1847
+LINE_MEDIAN_ATE_LIMIT_M = 1.5 * 0.1360
+LINE_OBJECT_LIMIT_M = 1.5 * 0.4586
+LINE_YAW_LIMIT_DEG = max(8.0, 7.7586 + 3.1)
+N_LINES = 128
+TILT_DEG = (8.0, -6.0)       # roll, pitch of the ground-alignment run
+TILT_FRAMES = 96
+GROUND_TOL = 1e-4
+# ground-alignment run: the JAX reference on the same tilted input
+# (reference_ate_spread.py --flag LineAndiForest --ground), seeds 12345
+# and 1-6: the first keyframe 6.8e-8 from its true pose on every seed,
+# 84-93 of 96 frames tracked; the chair (class 56) collects 19-21 yaw votes
+# and elects -23.28 (seeds 12345 and 5), -17.07, -13.97 or -10.86 degrees,
+# class 62 -7.76 or -1.55 where it lives: the chair rule's bias on this
+# view, beyond LINE_YAW_LIMIT_DEG in the reference itself. The port's yaws
+# there are held to the reference's worst plus 3.1 degrees.
+GROUND_REF_WORST_YAW_DEG = 23.2759
+GROUND_YAW_LIMIT_DEG = max(LINE_YAW_LIMIT_DEG, GROUND_REF_WORST_YAW_DEG + 3.1)
+CARD_CPU_FRAMES = (0, 60, 120)
 
 CHUNK = 32
 N_TIMED = 4
@@ -383,22 +442,26 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_main_path(ts, gt, images, seed: int, boxes=None, device: str = "cuda") -> dict:
+def run_main_path(ts, gt, images, seed: int, boxes=None, device: str = "cuda",
+                  flag: str = None) -> dict:
     """Bootstrap, warm-up and timed chunks through System.track_monocular
     with the given RANSAC seed: geometry mode, or with ``boxes`` (one
-    detector tuple per frame) DemoFlag.EAO with N_BOXES boxes and 32 object
-    slots. Returns the tracked frames, sim3 ATE, fps and poses of the timed
-    chunks and the pass timer; in EAO mode also the live objects, each
-    scene object's centre error, and the merges and kills of the merge
-    pass. ``device="cpu"`` runs the port on the host (port_ate_spread.py)."""
+    detector tuple per frame) an object-layer flag (DemoFlag.EAO unless
+    ``flag`` names another, such as "LineAndiForest") with N_BOXES boxes
+    and 32 object slots. Returns the tracked frames, sim3 ATE, fps and poses
+    of the timed chunks and the pass timer; with the object layer also the
+    live objects, each scene object's centre error, their elected yaws and
+    yaw votes, and the merges and kills of the merge pass.
+    ``device="cpu"`` runs the port on the host (port_ate_spread.py)."""
     from eao_slam_torch.config import CapacityConfig, DemoFlag, tum3_config
     from eao_slam_torch.system import System
 
-    eao = boxes is not None
-    cfg = tum3_config(DemoFlag.EAO if eao else DemoFlag.NONE).replace(
+    objects = boxes is not None
+    flag = DemoFlag(flag) if flag else (DemoFlag.EAO if objects else DemoFlag.NONE)
+    cfg = tum3_config(flag).replace(
         capacity=CapacityConfig(max_keyframes=128, max_points=8192,
                                 max_features=1024, local_ba_points=2048,
-                                **(dict(max_boxes=N_BOXES, max_objects=32) if eao else {})),
+                                **(dict(max_boxes=N_BOXES, max_objects=32) if objects else {})),
         seed=seed,
     )
     sysm = System(cfg, chunk=CHUNK, device=device)
@@ -411,10 +474,10 @@ def run_main_path(ts, gt, images, seed: int, boxes=None, device: str = "cuda") -
 def _drive_main_path(sysm, ts, gt, images, boxes, seed) -> dict:
     from eao_slam_torch.io.trajectory import ate_rmse
 
-    eao = boxes is not None
+    objects = boxes is not None
 
     def feed(k):
-        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k] if eao else None)
+        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k] if objects else None)
 
     i = 0
     while i < len(images) and not sysm.tracker.armed:
@@ -454,8 +517,9 @@ def _drive_main_path(sysm, ts, gt, images, boxes, seed) -> dict:
     loops = sysm.tracker.loop_closer.closed_loops
     out = {"seed": seed, "fps": fps, "tracked": tracked, "total": total, "ate_m": ate,
            "loops": loops, "poses": poses}
-    tag = f"{'EAO ' if eao else ''}seed {seed}"
-    if eao:
+    flag = sysm.cfg.flag
+    tag = f"{'' if flag.name == 'NONE' else flag.name + ' '}seed {seed}"
+    if objects:
         out.update(object_results(sysm.tracker, ts, gt))
         tag += (f": {out['objects']} live objects of the scene's classes (classes "
                 f"{out['object_classes']}), centre errors "
@@ -464,6 +528,9 @@ def _drive_main_path(sysm, ts, gt, images, boxes, seed) -> dict:
                 f"{', '.join(f'{e:.3f}' for e in out['object_centre_err_sim3_m'])} m), merges "
                 f"{out['merges']}, kills {out['kills']}, object keyframes "
                 f"{out['object_keyframes']}")
+        if flag.use_yaw_lines:
+            tag += ", yaws " + ", ".join(f"{o['cls']}: {o['yaw_deg']:.2f} deg ({o['votes']:.0f} "
+                                         f"votes)" for o in out["object_yaws"])
     print(f"{tag}: bootstrap {n_boot} frames, {tracked}/{total} timed frames tracked, "
           f"sim3 ATE {ate:.4f} m, {fps:.2f} fps over {N_TIMED} timed chunks ({dt:.3f} s), "
           f"keyframes {sysm.tracker.kf_count_host}, points {sysm.tracker.pt_count_host}, "
@@ -473,10 +540,10 @@ def _drive_main_path(sysm, ts, gt, images, boxes, seed) -> dict:
 
 def object_results(tracker, ts, gt) -> dict:
     """The live objects of the scene's classes, whether every scene class
-    has one, and each scene object's centre error (map_object_errors: in
-    the camera frames of the keyframes that observed the object, at the
-    map's scale)."""
-    from eao_slam_torch.io.trajectory import map_object_errors, sim3_object_errors
+    has one, each scene object's centre error (map_object_errors: in the
+    camera frames of the keyframes that observed the object, at the map's
+    scale), and each live object's elected yaw and yaw votes."""
+    from eao_slam_torch.io.trajectory import map_object_errors, object_yaws, sim3_object_errors
 
     scene = bench_scene()
     tab = {k: v.cpu().numpy() for k, v in tracker.obj_table._asdict().items()}
@@ -489,7 +556,7 @@ def object_results(tracker, ts, gt) -> dict:
                                                      scene.obj_classes),
             "object_centre_err_sim3_m": sim3_object_errors(m, tab, ts, gt, scene.obj_centers),
             "merges": tracker.n_object_merges, "kills": tracker.n_object_kills,
-            "object_keyframes": int(m["kf_by_object"].sum())}
+            "object_keyframes": int(m["kf_by_object"].sum()), "object_yaws": object_yaws(tab)}
 
 
 def check_run(run: dict, ate_limit: float = ATE_LIMIT_M) -> None:
@@ -501,16 +568,44 @@ def check_run(run: dict, ate_limit: float = ATE_LIMIT_M) -> None:
                              f"{run['ate_m']:.4f} m >= {ate_limit:.4f} m")
 
 
-def check_eao_run(run: dict) -> None:
-    check_run(run, EAO_ATE_LIMIT_M)
+def check_eao_run(run: dict, ate_limit: float = EAO_ATE_LIMIT_M,
+                  object_limit: float = EAO_OBJECT_LIMIT_M, tag: str = "EAO") -> None:
+    check_run(run, ate_limit)
     if run["objects"] < MIN_OBJECTS or not run["every_class"]:
-        raise AssertionError(f"EAO seed {run['seed']}: live objects of classes "
+        raise AssertionError(f"{tag} seed {run['seed']}: live objects of classes "
                              f"{run['object_classes']}: fewer than {MIN_OBJECTS}, or a scene "
                              f"object without one")
     worst = max(run["object_centre_err_m"])
-    if not worst < EAO_OBJECT_LIMIT_M:
-        raise AssertionError(f"EAO seed {run['seed']}: object centre error {worst:.3f} m >= "
-                             f"{EAO_OBJECT_LIMIT_M:.3f} m")
+    if not worst < object_limit:
+        raise AssertionError(f"{tag} seed {run['seed']}: object centre error {worst:.3f} m >= "
+                             f"{object_limit:.3f} m")
+
+
+def yaws_beyond(yaws: list, limit_deg: float) -> list:
+    """The objects with 3 or more yaw votes whose elected yaw lies beyond
+    ``limit_deg`` of the scene's 0."""
+    return [o for o in yaws if o["votes"] >= 3 and not abs(o["yaw_deg"]) <= limit_deg]
+
+
+def check_yaws(yaws: list, tag: str, limit_deg: float = None) -> None:
+    """Yaw evidence reached the table, and, given ``limit_deg``, every
+    object with 3 or more votes elected a yaw within it."""
+    if not sum(o["votes"] for o in yaws) > 0:
+        raise AssertionError(f"{tag}: no yaw votes")
+    bad = yaws_beyond(yaws, limit_deg) if limit_deg is not None else []
+    if bad:
+        raise AssertionError(f"{tag}: elected yaws beyond {limit_deg:.2f} deg: {bad}")
+
+
+def check_line_run(run: dict) -> None:
+    """The EAO gates at the line limits and yaw votes above 0; the objects
+    whose elected yaw lies beyond LINE_YAW_LIMIT_DEG are printed (see the
+    constant)."""
+    tag = f"LineAndiForest seed {run['seed']}"
+    check_eao_run(run, LINE_ATE_LIMIT_M, LINE_OBJECT_LIMIT_M, "LineAndiForest")
+    check_yaws(run["object_yaws"], tag)
+    beyond = yaws_beyond(run["object_yaws"], LINE_YAW_LIMIT_DEG)
+    print(f"{tag}: supported yaws beyond {LINE_YAW_LIMIT_DEG:.2f} deg: {beyond or 'none'}")
 
 
 def iforest_cull_ms(tracker) -> float:
@@ -539,7 +634,7 @@ def iforest_cull_ms(tracker) -> float:
 def run_eao(ts, gt, images, geometry: dict) -> dict:
     """The EAO phase: the default seed (fps, the kernel's launch count, the
     object layer's cost against ``geometry``, the geometry run of the same
-    seed), then seeds 1-6."""
+    seed), then the other seeds."""
     from eao_slam_torch.ops import fast_nms
 
     boxes = bench_boxes(gt)
@@ -587,7 +682,249 @@ def run_eao(ts, gt, images, geometry: dict) -> dict:
                                                      "object_centre_err_sim3_m", "merges", "kills",
                                                      "object_keyframes")}
                         for r in runs},
-            "default_seed": layer}
+            "default_seed": layer, "eao_chunk_ms": chunk["eao"]}
+
+
+def _tilt(deg_roll: float, deg_pitch: float) -> np.ndarray:
+    """The world-frame tilt of tests/test_ground_alignment.py: Rx(roll) Ry(pitch)."""
+    a, b = np.deg2rad(deg_roll), np.deg2rad(deg_pitch)
+    Rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    Ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+    return Rx @ Ry
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+RUNTIME_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def traced_calls(fn) -> dict:
+    """Kernel launches, host synchronisations and copies between host and
+    card of one call of ``fn``, counted from a torch.profiler trace (the
+    CUDA runtime calls, and the copies the card ran: a copy from pageable
+    host memory waits for the stream), less those of an empty traced call
+    (the profiler synchronises once itself)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(f):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            f()
+        torch.cuda.synchronize()
+        ev = prof.key_averages()
+        return {"launches": sum(e.count for e in ev if e.key in LAUNCH_CALLS),
+                "syncs": sum(e.count for e in ev if e.key in RUNTIME_SYNCS),
+                "host_copies": sum(e.count for e in ev
+                                   if e.key.startswith(("Memcpy HtoD", "Memcpy DtoH")))}
+
+    got, empty = count(fn), count(lambda: None)
+    return {k: got[k] - empty[k] for k in got}
+
+
+def detector_launches(imgs) -> int:
+    """Kernel launches of one detect_segments call on ``imgs`` (None when
+    the trace records none)."""
+    from eao_slam_torch.ops.lines import detect_segments
+
+    return traced_calls(lambda: detect_segments(imgs, max_lines=N_LINES))["launches"] or None
+
+
+def yaw_pass_trace(tracker, image, boxes) -> dict:
+    """traced_calls of one frame's yaw pass (yaw_sample_scores, then
+    update_yaw) on the tracker's final object table and pose, with the
+    line segments of ``image`` and its detector boxes, each box aimed at
+    the first live object of its class, after one untraced call."""
+    import torch
+
+    from eao_slam_torch.objects.yaw import update_yaw, yaw_sample_scores
+    from eao_slam_torch.ops.lines import detect_segments
+
+    table = tracker.obj_table
+    dev = table.cls.device
+    live = (table.valid & ~table.bad).cpu().numpy()
+    cls = table.cls.cpu().numpy()
+    bx, bcls, _, bvalid = boxes
+    targets = torch.as_tensor([int(np.flatnonzero(live & (cls == c))[0])
+                               if v and (live & (cls == c)).any() else -1
+                               for c, v in zip(bcls, bvalid)], device=dev)
+    bx = torch.as_tensor(np.asarray(bx, np.float32), device=dev)
+    lines, lv = (x[0] for x in detect_segments(
+        torch.as_tensor(image, device=dev).float()[None], max_lines=N_LINES))
+    args = (tracker.cfg.camera, table, targets, bx, tracker.carry.T_last, lines, lv)
+
+    def yaw_pass():
+        return update_yaw(table, targets, *yaw_sample_scores(*args))
+
+    yaw_pass()
+    return traced_calls(yaw_pass)
+
+
+def run_ground_alignment(ts, gt) -> dict:
+    """LINE_IFOREST on the first TILT_FRAMES frames of the arc with every
+    camera tilted, the ground truth fed through System.set_groundtruth
+    from a TUM file written by save_tum: the first keyframe must land on
+    the initializer frame's true T_cw, and the yaws hold
+    GROUND_YAW_LIMIT_DEG about gravity."""
+    import tempfile
+
+    from eao_slam_torch.config import CapacityConfig, DemoFlag, tum3_config
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import project_boxes
+    from eao_slam_torch.io.trajectory import object_yaws, save_tum
+    from eao_slam_torch.system import System
+
+    Q = _tilt(*TILT_DEG)
+    gt_t = np.stack([np.concatenate([T[:3, :3] @ Q.T, T[:3, 3:4]], 1) for T in gt[:TILT_FRAMES]])
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(
+            min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(bench_scene(),)) as pool:
+        images = np.stack(pool.map(_render, list(gt_t)))
+    t_render = time.perf_counter() - t0
+    scene = bench_scene()
+    boxes = [project_boxes(scene, TUM3, T, N_BOXES) for T in gt_t]
+    cfg = tum3_config(DemoFlag.LINE_IFOREST).replace(capacity=CapacityConfig(
+        max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048,
+        max_boxes=N_BOXES, max_objects=32))
+    sysm = System(cfg, chunk=CHUNK)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "groundtruth.txt")
+        save_tum(path, ts[:TILT_FRAMES], gt_t)
+        sysm.set_groundtruth(path)
+    kf0 = None
+    for k in range(TILT_FRAMES):
+        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k])
+        if kf0 is None and sysm.tracker.armed:
+            inner = sysm.tracker.inner
+            slot = inner.kf_slots[0]
+            kf0 = (float(inner.map.kf_timestamp[slot]), inner.map.kf_pose[slot].cpu().numpy())
+    sysm.flush()
+    if kf0 is None:
+        raise AssertionError("ground-alignment run: two-view initialization never succeeded")
+    i0 = int(np.argmin(np.abs(ts - kf0[0])))
+    err = float(np.abs(kf0[1] - gt_t[i0]).max())
+    kts, kT = sysm.keyframe_trajectory()
+    err_end = float(np.abs(kT[0] - gt_t[int(np.argmin(np.abs(ts - kts[0])))]).max())
+    tab = {k: v.cpu().numpy() for k, v in sysm.tracker.obj_table._asdict().items()}
+    yaws = object_yaws(tab)
+    tracked = len(sysm.frame_trajectory()[0])
+    print(f"ground alignment: {TILT_FRAMES} frames tilted by roll {TILT_DEG[0]} and pitch "
+          f"{TILT_DEG[1]} deg (rendered in {t_render:.1f} s), {tracked} tracked; first keyframe "
+          f"(frame {i0}) against its true T_cw: max |diff| {err:.3g} after the bootstrap, "
+          f"{err_end:.3g} at the end; yaws "
+          + ", ".join(f"{o['cls']}: {o['yaw_deg']:.2f} deg ({o['votes']:.0f} votes)" for o in yaws))
+    if not err <= GROUND_TOL:
+        raise AssertionError(f"ground alignment: first keyframe {err:.3g} from its true pose")
+    check_yaws(yaws, "ground alignment", GROUND_YAW_LIMIT_DEG)
+    return {"frames": TILT_FRAMES, "tracked": tracked, "init_frame": i0,
+            "first_kf_max_abs_diff": err, "first_kf_max_abs_diff_end": err_end,
+            "object_yaws": yaws}
+
+
+def card_against_cpu(images) -> dict:
+    """detect_segments on the card and on the CPU on CARD_CPU_FRAMES: valid
+    counts within 2, and >= 90 % of the card's valid segments within 1 px
+    (both endpoints, either direction) of a valid CPU segment."""
+    import torch
+
+    from eao_slam_torch.ops.lines import detect_segments
+
+    x = np.stack([images[k] for k in CARD_CPU_FRAMES]).astype(np.float32)
+    sc, vc = (a.cpu().numpy() for a in detect_segments(torch.as_tensor(x, device="cuda"),
+                                                       max_lines=N_LINES))
+    sh, vh = (a.numpy() for a in detect_segments(torch.as_tensor(x), max_lines=N_LINES))
+    out = []
+    for k, a, va, b, vb in zip(CARD_CPU_FRAMES, sc, vc, sh, vh):
+        a, b = a[va], b[vb]
+        d = np.abs(a[:, None] - b[None]).max(-1)
+        flip = np.abs(a[:, None] - b[None][..., [2, 3, 0, 1]]).max(-1)
+        matched = float((np.minimum(d, flip) <= 1.0).any(1).mean()) if len(a) else 1.0
+        out.append({"frame": k, "card_valid": int(va.sum()), "cpu_valid": int(vb.sum()),
+                    "matched": matched})
+    print("detector, card against CPU: " + "; ".join(
+        f"frame {o['frame']}: {o['card_valid']} / {o['cpu_valid']} valid, "
+        f"{100 * o['matched']:.1f} % matched" for o in out))
+    for o in out:
+        if abs(o["card_valid"] - o["cpu_valid"]) > 2 or o["matched"] < 0.9:
+            raise AssertionError(f"detector: card and CPU disagree on frame {o['frame']}: {o}")
+    return {"frames": out}
+
+
+def run_lines(ts, gt, images, geometry: dict, eao: dict) -> dict:
+    """The line phase: the detector alone (valid lines per frame over the
+    arc, CUDA-event time and launches per chunk), the default seed (fps,
+    the FAST kernel's launches, the line layer's cost against the EAO
+    chunk of the same seed), seeds 1-6, the ground-alignment run, and the
+    card against the CPU."""
+    import torch
+
+    from eao_slam_torch.ops import fast_nms
+    from eao_slam_torch.ops.lines import detect_segments
+
+    chunk_imgs = torch.as_tensor(images[8:8 + CHUNK], device="cuda").float()
+    det_ms = cuda_ms(lambda: detect_segments(chunk_imgs, max_lines=N_LINES), warmup=1, iters=5)
+    det_launches = detector_launches(chunk_imgs)
+    valid = []
+    for lo in range(0, len(images), CHUNK):
+        x = torch.as_tensor(images[lo:lo + CHUNK], device="cuda").float()
+        valid.append(detect_segments(x, max_lines=N_LINES)[1].sum(1).cpu().numpy())
+    valid = np.concatenate(valid)
+    print(f"line detector: {float(np.median(valid)):.1f} valid lines per frame (median over "
+          f"{len(valid)} frames, range {int(valid.min())}-{int(valid.max())}); a chunk of "
+          f"{CHUNK} frames in {det_ms:.2f} ms (CUDA events), {det_launches} kernel launches")
+
+    boxes = bench_boxes(gt)
+
+    fast_nms.reset_launches()
+    first = run_main_path(ts, gt, images, SEEDS[0], boxes=boxes, flag="LineAndiForest")
+    launches = dict(fast_nms.launches)
+    print(f"line path: launches {launches}")
+    if launches["fast_nms_tile_max"] <= 0:
+        raise AssertionError("the line path never launched fast_nms_tile_max")
+    check_line_run(first)
+    yaw_pass = yaw_pass_trace(first["timer"].tracker, images[-1], boxes[-1])
+    print(f"yaw pass of one frame (default seed's final state, the arc's last frame): "
+          f"{yaw_pass['launches']} kernel launches, {yaw_pass['syncs']} host synchronisations, "
+          f"{yaw_pass['host_copies']} copies between host and card")
+    if yaw_pass["launches"] <= 0 or yaw_pass["syncs"] or yaw_pass["host_copies"]:
+        raise AssertionError(f"the yaw pass must launch kernels, and neither synchronise "
+                             f"with the host nor copy to or from it: {yaw_pass}")
+    line_chunk = float(np.median(first["timer"].times["chunk"][-N_TIMED:])) * 1e3
+    layer = line_chunk - eao["eao_chunk_ms"]
+    print(f"LineAndiForest, default seed: a timed chunk of {CHUNK} frames takes {line_chunk:.1f} "
+          f"ms against {eao['eao_chunk_ms']:.1f} ms in EAO mode (medians, host clock between "
+          f"synchronises): the line layer {layer:.1f} ms a chunk; LineAndiForest "
+          f"{first['fps']:.2f} fps, EAO {eao['fps']:.2f} fps, geometry {geometry['fps']:.2f} fps")
+    runs = [first]
+    for seed in SEEDS[1:]:
+        runs.append(run_main_path(ts, gt, images, seed, boxes=boxes, flag="LineAndiForest"))
+        check_line_run(runs[-1])
+    median_ate = float(np.median([r["ate_m"] for r in runs]))
+    worst_yaw = max([abs(o["yaw_deg"]) for r in runs for o in r["object_yaws"] if o["votes"] >= 3],
+                    default=None)
+    n_beyond = sum(bool(yaws_beyond(r["object_yaws"], LINE_YAW_LIMIT_DEG)) for r in runs)
+    print(f"LineAndiForest over seeds {list(SEEDS)}: sim3 ATE median {median_ate:.4f} m (limit "
+          f"{LINE_MEDIAN_ATE_LIMIT_M:.4f} m), worst {max(r['ate_m'] for r in runs):.4f} m "
+          f"(limit {LINE_ATE_LIMIT_M:.4f} m); objects {[r['objects'] for r in runs]}; object "
+          f"centre error worst {max(max(r['object_centre_err_m']) for r in runs):.3f} m (limit "
+          f"{LINE_OBJECT_LIMIT_M:.3f} m); supported yaw worst {worst_yaw} deg, {n_beyond} of "
+          f"{len(runs)} runs beyond {LINE_YAW_LIMIT_DEG:.2f} deg (printed, not gated); fps "
+          f"{[round(r['fps'], 2) for r in runs]}")
+    if not median_ate < LINE_MEDIAN_ATE_LIMIT_M:
+        raise AssertionError(f"LineAndiForest median sim3 ATE {median_ate:.4f} m >= "
+                             f"{LINE_MEDIAN_ATE_LIMIT_M:.4f} m")
+    return {"fps": first["fps"], "launches": launches, "median_ate_m": median_ate,
+            "worst_supported_yaw_deg": worst_yaw, "runs_with_yaw_beyond_limit": n_beyond,
+            "yaw_pass": yaw_pass,
+            "by_seed": {r["seed"]: {k: r[k] for k in ("fps", "tracked", "total", "ate_m",
+                                                     "objects", "object_classes",
+                                                     "object_centre_err_m", "object_yaws",
+                                                     "merges", "kills")}
+                        for r in runs},
+            "detector": {"valid_lines_median": float(np.median(valid)),
+                         "chunk_ms": det_ms, "launches_per_chunk": det_launches},
+            "line_chunk_ms": line_chunk, "line_layer_ms": layer,
+            "ground_alignment": run_ground_alignment(ts, gt),
+            "card_against_cpu": card_against_cpu(images)}
 
 
 def _reloc_errors(tracker, gt_of_step, step, T_rec, n_local: int = 8):
@@ -892,6 +1229,7 @@ def main() -> int:
     eao = run_eao(ts, gt, images, path)
     print(f"EAO {eao['fps']:.2f} fps against geometry {path['fps']:.2f} fps on this card "
           f"(default seed, 4 timed chunks each)")
+    lines = run_lines(ts, gt, images, path, eao)
 
     long_run = run_long(ts, gt, images)
     circuit = run_circuit()
@@ -912,6 +1250,7 @@ def main() -> int:
             "replaces": "eao_slam_tpu/ops/fast_pallas.py:89",
             "launches": launches[name],
             "launches_eao_path": eao["launches"][name],
+            "launches_line_path": lines["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
@@ -928,6 +1267,8 @@ def main() -> int:
         "ate_m_by_seed": {r["seed"]: r["ate_m"] for r in runs},
         "loops_by_seed": {r["seed"]: r["loops"] for r in runs}, "card": card}}))
     print(json.dumps({"eao": {k: v for k, v in eao.items() if k != "launches"}, "card": card}))
+    print(json.dumps({"lines": {k: v for k, v in lines.items() if k != "launches"},
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Configuration of the port: the same frozen dataclasses as the reference
-package's config, limited to the fields chunked tracking (geometry mode
-and the EAO object layer) reads, with the reference's names and defaults.
+package's config, limited to the fields chunked tracking (geometry mode,
+the EAO object layer and line-alignment yaw) reads, with the reference's
+names and defaults.
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ from eao_slam_torch.geometry.camera import Camera, TUM3
 
 
 class DemoFlag(enum.Enum):
-    """Ablation flags (mono_tum CLI contract). The port runs NONE and the
-    object-layer flags without line-alignment yaw: IFOREST, NA, IOU, NP and
-    EAO."""
+    """Ablation flags (mono_tum CLI contract). The port runs every flag but
+    FULL: NONE, the object-layer flags IFOREST, NA, IOU, NP and EAO, and
+    LINE_IFOREST (the object layer with line-alignment yaw)."""
 
     NONE = "None"
     IFOREST = "iForest"
@@ -47,6 +48,10 @@ class DemoFlag(enum.Enum):
     @property
     def use_yaw_lines(self) -> bool:
         return self in (DemoFlag.LINE_IFOREST, DemoFlag.FULL)
+
+    @property
+    def semidense_enabled(self) -> bool:
+        return self == DemoFlag.FULL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +105,7 @@ class CapacityConfig:
     max_objects: int = 64
     max_features: int = 1024
     max_boxes: int = 16               # detector boxes per frame
+    max_lines: int = 128              # 2D line segments per frame
     local_ba_points: int = 4096
 
 
@@ -128,13 +134,12 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
 def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
     """The port covers chunked tracking with its between-chunk passes
     (object merge, maintenance, loop closing, relocalization), in geometry
-    mode and with the EAO object layer; everything else names the
-    ROADMAP.md item that will port it."""
-    if cfg.flag.use_yaw_lines:
+    mode, with the EAO object layer and with line-alignment yaw;
+    everything else names the ROADMAP.md item that will port it."""
+    if cfg.flag.semidense_enabled:
         raise NotImplementedError(
-            f"DemoFlag.{cfg.flag.name} is not ported yet: line detection and "
-            "line-alignment yaw (ops/lines.py, objects/yaw.py) are ROADMAP.md "
-            "Queue 1 item 10")
+            f"DemoFlag.{cfg.flag.name} is not ported yet: its offline dense phase "
+            "(dense/semidense.py, lines3d.py, mesh.py) is ROADMAP.md Queue 1 item 12")
     if not chunked:
         raise NotImplementedError(
             "the interactive per-frame tracker (chunked=False) is not ported "

@@ -1,13 +1,84 @@
-"""TUM RGB-D side inputs of the EAO object layer: the offline detector's
-per-frame box files and the t-distribution critical-value table
-(numpy; the table from scipy when no file is given)."""
+"""TUM RGB-D sequence contract (numpy): the image list ("timestamp
+filename" rows), the ground truth ("timestamp tx ty tz qx qy qz qw" rows,
+the camera pose in the gravity-aligned ground frame), the offline
+detector's per-frame box files and the t-distribution critical-value table
+of the EAO object layer (from scipy when no file is given). Lines starting
+with '#' are comments."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+
+
+class ImageList(NamedTuple):
+    timestamps: np.ndarray  # [N] float64
+    filenames: list         # [N] str, relative to the sequence root
+
+
+def load_image_list(path: str) -> ImageList:
+    ts, names = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            ts.append(float(parts[0]))
+            names.append(parts[1])
+    return ImageList(np.asarray(ts, np.float64), names)
+
+
+class GroundTruth(NamedTuple):
+    timestamps: np.ndarray  # [N] float64
+    t_wc: np.ndarray        # [N, 3]
+    q_wc: np.ndarray        # [N, 4] wxyz (the file stores xyzw)
+
+
+def load_groundtruth(path: str) -> GroundTruth:
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.split()]
+            if len(vals) >= 8:
+                rows.append(vals[:8])
+    arr = np.asarray(rows, np.float64)
+    return GroundTruth(arr[:, 0], arr[:, 1:4], arr[:, [7, 4, 5, 6]])
+
+
+def lookup_pose(gt: GroundTruth, timestamp: float, tol: float = 0.05):
+    """The ground-truth row nearest ``timestamp``: (t, q wxyz), or None
+    when it is more than ``tol`` seconds away."""
+    i = int(np.argmin(np.abs(gt.timestamps - timestamp)))
+    if abs(gt.timestamps[i] - timestamp) > tol:
+        return None
+    return gt.t_wc[i], gt.q_wc[i]
+
+
+def pose_from_tq(t, q_wxyz) -> np.ndarray:
+    """(t, q wxyz) -> [3, 4] float64 camera-in-world (T_wc) matrix; the
+    quaternion is normalised first."""
+    w, x, y, z = (float(v) for v in q_wxyz)
+    n = (w * w + x * x + y * y + z * z) ** 0.5
+    w, x, y, z = w / n, x / n, y / n, z / n
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float64)
+    return np.concatenate([R, np.asarray(t, np.float64)[:, None]], axis=1)
+
+
+def lookup_pose_matrix(gt: GroundTruth, timestamp: float,
+                       tol: float = 0.05) -> Optional[np.ndarray]:
+    """The nearest ground-truth pose as a [3, 4] T_wc matrix, or None."""
+    hit = lookup_pose(gt, timestamp, tol)
+    return None if hit is None else pose_from_tq(hit[0], hit[1])
 
 
 def load_yolo_boxes(yolo_dir: str, timestamp: float, max_boxes: int,

@@ -1,6 +1,7 @@
-"""Image pyramid: antialiased bilinear downsampling as two weight matrices.
+"""Image-plane ops: the pyramid and Sobel gradients.
 
-The reference resizes with a triangle filter widened by 1/scale when
+Pyramid: antialiased bilinear downsampling as two weight matrices. The
+reference resizes with a triangle filter widened by 1/scale when
 downsampling (jax.image.resize "bilinear", antialias on) and rounds every
 level to integer grey levels. ``torch.nn.functional.interpolate`` does not
 promise that filter, so the per-axis weight matrices are built here with
@@ -61,3 +62,19 @@ def build_pyramid(img: torch.Tensor, n_levels: int = 8, scale_factor: float = 1.
         wx = torch.from_numpy(resize_weights(pw, sizes[l][1])).to(prev.device)
         levels.append(torch.round(wy.T @ prev @ wx))
     return tuple(levels)
+
+
+def sobel_gradients(img: torch.Tensor):
+    """[..., H, W] float32 -> (gx, gy, magnitude) of the 3x3 Sobel operator
+    over the edge-padded image, summed in the reference's order."""
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
+    p = torch.nn.functional.pad(img.reshape(-1, 1, H, W), (1, 1, 1, 1), mode="replicate")
+    p = p.reshape(*lead, H + 2, W + 2)
+
+    def s(dy, dx):
+        return p[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+    gx = (s(-1, 1) + 2 * s(0, 1) + s(1, 1)) - (s(-1, -1) + 2 * s(0, -1) + s(1, -1))
+    gy = (s(1, -1) + 2 * s(1, 0) + s(1, 1)) - (s(-1, -1) + 2 * s(-1, 0) + s(-1, 1))
+    return gx, gy, torch.sqrt(gx * gx + gy * gy)

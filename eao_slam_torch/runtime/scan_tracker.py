@@ -4,7 +4,8 @@ Per frame: motion-model matching + robust pose LM (reference-keyframe
 fallback), local-map matching + pose LM, with the EAO object layer on
 (an object-layer DemoFlag) the object pass on a tracked frame with
 detector boxes (detection statistics, the ensemble cascade, the table
-update; a new object forces a keyframe), the keyframe state machine and,
+update, with line-alignment yaw the yaw vote from the frame's line
+segments; a new object forces a keyframe), the keyframe state machine and,
 on keyframe frames only, keyframe insertion, epipolar triangulation with
 the top covisible neighbours and map-point fusion. Once per chunk that
 inserted a keyframe: windowed Schur BA, point culling and post-BA fusion;
@@ -38,7 +39,9 @@ from eao_slam_torch.objects.merge import run_merge_pass
 from eao_slam_torch.objects.resolve import resolve_cascade
 from eao_slam_torch.objects.state import ObjectTable, empty_object_table
 from eao_slam_torch.objects.stats import make_t_table
+from eao_slam_torch.objects.yaw import update_yaw, yaw_sample_scores
 from eao_slam_torch.ops import matching
+from eao_slam_torch.ops.lines import detect_segments
 from eao_slam_torch.ops.orb import extract_orb, scale_sigma2
 from eao_slam_torch.runtime import tracking_kernels as tk
 from eao_slam_torch.runtime.compaction import covisibility, cull_and_compact
@@ -104,6 +107,8 @@ class FrameBatch(NamedTuple):
     box_class: Optional[torch.Tensor] = None  # [C, B]
     box_score: Optional[torch.Tensor] = None  # [C, B]
     box_valid: Optional[torch.Tensor] = None  # [C, B]
+    lines: Optional[torch.Tensor] = None      # [C, L, 4]; None = no segments
+    line_valid: Optional[torch.Tensor] = None  # [C, L]
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +267,11 @@ def make_chunk_step(cfg: SystemConfig):
                                       frame.boxes, frame.box_class, T, frame.kp, cur_pt,
                                       frame_id)
         table = table._replace(re_obj=table.re_obj + res.re_inc)
+        if flag.use_yaw_lines:
+            targets = torch.where(res.assoc >= 0, res.assoc, res.new_slots)
+            counts, errs, n_lines = yaw_sample_scores(cam, table, targets, frame.boxes, T,
+                                                      frame.lines, frame.line_valid)
+            table = update_yaw(table, targets, counts, errs, n_lines)
         return m, table, (res.new_slots >= 0).any()
 
     def kf_branch(m: MapState, kf_count, pt_count, frame: Frame, ts, frame_id, T, cur_pt,
@@ -419,10 +429,16 @@ def make_track_chunk(cfg: SystemConfig):
         active = (np.ones(C, bool) if batch.active is None
                   else batch.active.cpu().numpy().astype(bool))
         ts_host = batch.timestamp.cpu().numpy()
-        box_fields = (None,) * 4
+        obj_fields = (None,) * 6
         has_boxes = np.zeros(C, bool)
         if carry.table is not None and batch.boxes is not None:
-            box_fields = (batch.boxes, batch.box_class, batch.box_score, batch.box_valid)
+            lines = (batch.lines, batch.line_valid)
+            if cfg.flag.use_yaw_lines and batch.lines is None:
+                dev = batch.boxes.device
+                L = cfg.capacity.max_lines
+                lines = (torch.zeros((C, L, 4), dtype=torch.float32, device=dev),
+                         torch.zeros((C, L), dtype=torch.bool, device=dev))
+            obj_fields = (batch.boxes, batch.box_class, batch.box_score, batch.box_valid, *lines)
             has_boxes = batch.box_valid.any(1).cpu().numpy()
         outs = []
         for i in range(C):
@@ -431,7 +447,7 @@ def make_track_chunk(cfg: SystemConfig):
                              carry.kf_count, carry.pt_count))
                 continue
             frame = Frame(batch.kp[i], batch.desc[i], batch.octave[i], batch.angle[i],
-                          batch.valid[i], *(None if x is None else x[i] for x in box_fields))
+                          batch.valid[i], *(None if x is None else x[i] for x in obj_fields))
             carry, out = step(carry, frame, float(ts_host[i]), bool(has_boxes[i]))
             outs.append(out)
         is_kf = np.array([o[3] for o in outs], bool)
@@ -477,11 +493,18 @@ def make_track_chunk(cfg: SystemConfig):
 def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
                   active=None, boxes=None) -> FrameBatch:
     """ORB front end over a chunk of raw images [C, H, W] uint8 (one FAST
-    kernel launch for all pyramid levels of the whole chunk); ``boxes``:
-    (boxes, class, score, valid) tensors [C, B, ...] or None."""
+    kernel launch for all pyramid levels of the whole chunk) and, with
+    line-alignment yaw on and boxes given, the chunk's line segments (one
+    batched call, nothing read back); ``boxes``: (boxes, class, score,
+    valid) tensors [C, B, ...] or None."""
     F = cfg.capacity.max_features
+    img = images_u8.to(torch.float32)
+    lines = {}
+    if boxes is not None and cfg.flag.use_yaw_lines:
+        lines = dict(zip(("lines", "line_valid"),
+                         detect_segments(img, max_lines=cfg.capacity.max_lines)))
     feats = extract_orb(
-        images_u8.to(torch.float32), n_features=F, n_levels=cfg.orb.n_levels,
+        img, n_features=F, n_levels=cfg.orb.n_levels,
         scale_factor=cfg.orb.scale_factor,
         threshold=float(cfg.orb.fast_threshold),
         min_threshold=float(cfg.orb.fast_min_threshold),
@@ -494,6 +517,7 @@ def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
         active=active,
         **({} if boxes is None else dict(zip(("boxes", "box_class", "box_score", "box_valid"),
                                              boxes))),
+        **lines,
     )
 
 
@@ -550,10 +574,11 @@ class ChunkedTracker:
 
     # -- bootstrap ------------------------------------------------------
 
-    def bootstrap(self, frame: Frame, timestamp: float) -> bool:
+    def bootstrap(self, frame: Frame, timestamp: float, gt_pose=None) -> bool:
         """Feed frames one at a time until two-view init succeeds. Returns
-        True once the map exists and chunked mode is armed."""
-        T = self.inner.track(frame, timestamp)
+        True once the map exists and chunked mode is armed. ``gt_pose``:
+        the frame's ground-truth T_wc [3, 4] or None (MonoTracker.track)."""
+        T = self.inner.track(frame, timestamp, gt_pose=gt_pose)
         self.records.append((timestamp, None if T is None else np.asarray(T),
                              self.inner.state))
         if self.inner.state == OK:
@@ -891,7 +916,7 @@ class _LoopView:
 
 
 def batch_from_frames(frames, timestamps) -> FrameBatch:
-    """Stack a list of Frame (features and boxes) into one chunk."""
+    """Stack a list of Frame (features, boxes, lines) into one chunk."""
     return FrameBatch(
         timestamp=torch.as_tensor(np.asarray(timestamps, np.float32)),
         **{f: torch.stack([getattr(fr, f) for fr in frames]) for f in Frame._fields

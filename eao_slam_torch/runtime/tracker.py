@@ -3,7 +3,9 @@
 The port of the reference MonoTracker covers what the chunked tracker
 needs before its first chunk: frames are fed one at a time until two-view
 initialization succeeds, then the two keyframes, their triangulated points
-and a global BA form the initial map. Per-frame tracking after that point
+and a global BA form the initial map. Given the ground-truth pose of the
+initializer frame (the GT-pose protocol of a TUM sequence), the initial
+map is then rotated onto the ground. Per-frame tracking after that point
 (the interactive ``chunked=False`` path) is ROADMAP.md Queue 1 item 13.
 """
 
@@ -58,27 +60,35 @@ class MonoTracker:
         self.frame_id = 0
         self.init_ref: Optional[Frame] = None
         self.init_ref_t: float = 0.0
+        self.init_gt: Optional[np.ndarray] = None   # [3, 4] T_wc of init_ref
 
     # ------------------------------------------------------------------
 
-    def track(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
+    def track(self, frame: Frame, timestamp: float,
+              gt_pose: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
         """Feed one frame while not initialised; returns the new keyframe's
-        camera-from-world pose [3, 4] once the map exists, else None."""
+        camera-from-world pose [3, 4] once the map exists, else None.
+        ``gt_pose``: this frame's ground-truth T_wc [3, 4] in the ground
+        frame, or None; the initializer frame's is kept, and the initial map
+        is rotated onto the ground with it."""
         self.frame_id += 1
         if self.state not in (NO_IMAGES, NOT_INITIALIZED):
             raise NotImplementedError(
                 "per-frame tracking after initialization is the interactive "
                 "tracker, not ported yet: ROADMAP.md Queue 1 item 13")
-        return self._initialize(frame, timestamp)
+        return self._initialize(frame, timestamp, gt_pose)
 
-    def _initialize(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
+    def _initialize(self, frame: Frame, timestamp: float,
+                    gt_pose: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
         """MonocularInitialization: keep a reference frame with enough
-        features, match the next frames to it, try two-view init."""
+        features (and its ground-truth pose), match the next frames to it,
+        try two-view init."""
         min_init = self.cfg.tracking.min_init_matches
         n_feats = int(frame.valid.sum())
         if self.init_ref is None or n_feats < min_init:
             if n_feats >= min_init:
                 self.init_ref, self.init_ref_t = frame, timestamp
+                self.init_gt = gt_pose
                 self.state = NOT_INITIALIZED
             return None
         ref = self.init_ref
@@ -86,6 +96,7 @@ class MonoTracker:
                                        frame.kp, frame.desc, frame.angle, frame.valid)
         if int(ok.sum()) < min_init:
             self.init_ref, self.init_ref_t = frame, timestamp
+            self.init_gt = gt_pose
             return None
         res = initialize_two_view(self.cam, ref.kp, frame.kp[idx.long()], ok,
                                   generator=self.generator, min_triangulated=min_init // 2)
@@ -151,6 +162,8 @@ class MonoTracker:
         ba = run_local_ba(self.cam, self.map, self.kf_slots[-2:], [self.kf_slots[-2]],
                           self.scale2_np, cap.local_ba_points)
         self._apply_ba(ba)
+        if self.init_gt is not None:
+            self._align_world_to_ground(np.asarray(self.init_gt, np.float64))
 
         T_final = self.map.kf_pose[self.kf_slots[-1]].cpu().numpy()
         self.state = OK
@@ -160,6 +173,31 @@ class MonoTracker:
         self.last_pt = torch.as_tensor(np.where(last >= 0, last, -1), device=dev)
         self.ref_kf_tracked = int((pt2 >= 0).sum())
         return T_final
+
+    def _align_world_to_ground(self, init_to_ground: np.ndarray) -> None:
+        """Rotate the world frame onto the ground with the initializer
+        frame's ground-truth pose G = T_wc (src/Tracking.cc:1018-1045):
+        keyframe poses become T_cw G^-1, point positions R_G X + t_G and
+        point normals R_G n, in float32 over every slot. Gravity is then the
+        world's -y axis, which the object yaw (``objects.state.yaw_rotation``)
+        assumes."""
+        G = init_to_ground.astype(np.float32)
+        Rt = G[:3, :3].T
+        G_inv = np.concatenate([Rt, (-Rt @ G[:3, 3])[:, None]], axis=1)
+
+        def t(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+
+        R_G, t_G = t(G[:3, :3]), t(G[:3, 3])
+        m = self.map
+        kf_R, kf_t = m.kf_pose[..., :3], m.kf_pose[..., 3]
+        new_R = torch.einsum("kab,bc->kac", kf_R, t(G_inv[:3, :3]))
+        new_t = torch.einsum("kab,b->ka", kf_R, t(G_inv[:3, 3])) + kf_t
+        self.map = m._replace(
+            kf_pose=torch.cat([new_R, new_t[..., None]], dim=-1),
+            pt_pos=m.pt_pos @ R_G.T + t_G[None, :],
+            pt_normal=m.pt_normal @ R_G.T,
+        )
 
     def _free_kf_slot(self) -> int:
         free = np.nonzero(~self.kf_valid_host)[0]

@@ -9,20 +9,31 @@ pre-extracted front-end output (the feature-level seam; boxes ride on the
 Frame). After every chunk the tracker runs its between-chunk passes:
 object merge, map maintenance, loop closing and relocalization.
 Poses come back at chunk granularity; ``flush()`` dispatches a partial
-tail chunk and ``frame_trajectory()`` returns every tracked pose.
-``save_checkpoint`` / ``load_checkpoint`` stop and resume a run.
+tail chunk, ``frame_trajectory()`` returns every tracked pose and
+``current_pose()`` the newest one, extrapolated over the buffered frames.
+``set_groundtruth`` arms the GT-pose protocol of a TUM sequence: the
+initializer frame's ground-truth pose rotates the initial map onto the
+ground. ``save_keyframe_trajectory_tum``, ``save_frame_trajectory_tum`` and
+``save_objects_json`` export a run; ``timing_stats`` summarises the time
+per ``track_monocular`` call. ``save_checkpoint`` / ``load_checkpoint``
+stop and resume a run.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from eao_slam_torch.config import DemoFlag, SystemConfig, check_supported, tum3_config
+from eao_slam_torch.geometry import se3
+from eao_slam_torch.io.trajectory import save_tum
+from eao_slam_torch.io.tum import GroundTruth, load_groundtruth, lookup_pose_matrix
 from eao_slam_torch.runtime.frame import Frame, empty_boxes, frame_from_image
 from eao_slam_torch.runtime.scan_tracker import ChunkedTracker, batch_from_frames
 
@@ -47,6 +58,8 @@ class System:
         # chunk buffers (image path and feature path: one per System)
         self._img_buf: list = []     # (img u8, ts, boxes or None)
         self._frame_buf: list = []   # (Frame, ts)
+        self._groundtruth: Optional[GroundTruth] = None
+        self.timings: list = []      # seconds per track_monocular call
 
     @property
     def _armed(self) -> bool:
@@ -58,15 +71,30 @@ class System:
         [B]) in the offline-detector contract (``io.tum.load_yolo_boxes``).
         Returns T_cw [3, 4] when a pose is known at this call (bootstrap, or
         the last frame of a chunk just dispatched), else None."""
+        t0 = time.perf_counter()
+        T = None
         if self._armed:
             if self._frame_buf:
                 raise RuntimeError("mixed track_frame / track_monocular")
             self._img_buf.append((np.asarray(img, np.uint8), float(timestamp), boxes))
             if len(self._img_buf) >= self.tracker.chunk:
-                return self._flush_images()
-            return None
-        return self.track_frame(frame_from_image(self.cfg, img, self.device, boxes=boxes),
-                                timestamp)
+                T = self._flush_images()
+        else:
+            T = self.track_frame(frame_from_image(self.cfg, img, self.device, boxes=boxes),
+                                 timestamp)
+        self.timings.append(time.perf_counter() - t0)
+        return T
+
+    def set_groundtruth(self, gt_or_path) -> None:
+        """Arm the GT-pose protocol (src/Tracking.cc:197-241): a
+        ``GroundTruth`` or the path of a TUM ground-truth file. Each frame
+        fed before the tracker is armed looks up its pose by timestamp; the
+        initializer frame's rotates the initial map onto the ground."""
+        if isinstance(gt_or_path, str):
+            gt_or_path = load_groundtruth(gt_or_path)
+        if not isinstance(gt_or_path, GroundTruth):
+            raise TypeError(f"expected a GroundTruth or a path, got {type(gt_or_path)}")
+        self._groundtruth = gt_or_path
 
     def track_frame(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
         """Feed a pre-extracted Frame (``runtime.frame.frame_from_arrays``).
@@ -79,8 +107,11 @@ class System:
             if len(self._frame_buf) >= self.tracker.chunk:
                 return self._flush_frames()
             return None
+        gt_pose = None
+        if self._groundtruth is not None:
+            gt_pose = lookup_pose_matrix(self._groundtruth, timestamp)
         inner = self.tracker.inner
-        self.tracker.bootstrap(frame, float(timestamp))
+        self.tracker.bootstrap(frame, float(timestamp), gt_pose=gt_pose)
         return np.asarray(inner.last_T) if inner.state == OK else None
 
     def _flush_images(self) -> Optional[np.ndarray]:
@@ -127,6 +158,68 @@ class System:
             self._flush_images()
         if self._frame_buf:
             self._flush_frames()
+
+    def current_pose(self, extrapolate: bool = True):
+        """The newest pose estimate without waiting for a chunk boundary:
+        (timestamp, T_cw [3, 4]) of the newest tracked frame or, with
+        ``extrapolate`` and frames still buffered while tracking is OK, that
+        pose carried through the motion model once per buffered frame (the
+        prediction the next chunk starts from) with the newest buffered
+        timestamp. None before initialization."""
+        tr = self.tracker
+        t_last = T_last = None
+        for t, T, _ in reversed(tr.records):
+            if T is not None:
+                t_last, T_last = t, T
+                break
+        if T_last is None:
+            return None
+        n_buf = len(self._img_buf) + len(self._frame_buf)
+        if not extrapolate or n_buf == 0 or not tr.armed or tr.state != OK:
+            return t_last, np.asarray(T_last)
+        vel, T = tr.carry.velocity, tr.carry.T_last
+        for _ in range(n_buf):
+            T = se3.compose(vel, T)
+        buf = self._img_buf or self._frame_buf
+        return float(buf[-1][1]), T.cpu().numpy()
+
+    def timing_stats(self) -> dict:
+        """Median and mean seconds per ``track_monocular`` call, and the
+        rate the mean gives (mono_tum's end-of-run summary); {} before the
+        first call."""
+        if not self.timings:
+            return {}
+        t = np.asarray(self.timings)
+        return {"median_s": float(np.median(t)), "mean_s": float(t.mean()),
+                "fps": float(1.0 / max(t.mean(), 1e-9))}
+
+    def save_keyframe_trajectory_tum(self, path: str) -> int:
+        """The keyframe trajectory as a TUM file; returns its rows."""
+        ts, Ts = self.keyframe_trajectory()
+        return save_tum(path, ts, Ts)
+
+    def save_frame_trajectory_tum(self, path: str) -> int:
+        """Every tracked frame's pose as a TUM file; returns its rows."""
+        ts, Ts = self.frame_trajectory()
+        return save_tum(path, ts, Ts)
+
+    def save_objects_json(self, path: str) -> int:
+        """The live object landmarks (valid, not bad) as a JSON list of
+        {id, class, center, size, yaw, n_obs}; an empty list in geometry
+        mode. Returns the number written."""
+        self.flush()
+        t = self.tracker.obj_table
+        out = []
+        if t is not None:
+            tab = {k: v.cpu().numpy() for k, v in t._asdict().items()}
+            for j in np.flatnonzero(tab["valid"] & ~tab["bad"]):
+                out.append({"id": int(j), "class": int(tab["cls"][j]),
+                            "center": tab["center"][j].tolist(),
+                            "size": (tab["cub_max"][j] - tab["cub_min"][j]).tolist(),
+                            "yaw": float(tab["yaw"][j]), "n_obs": int(tab["n_obs"][j])})
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        return len(out)
 
     def save_checkpoint(self, path: str) -> None:
         """Serialize the tracker mid-sequence (pending buffers flush first):

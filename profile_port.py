@@ -1,9 +1,13 @@
 """Where one chunk's time goes in the port's main path, on one NVIDIA GPU.
 
-    python3 profile_port.py
+    python3 profile_port.py [--flags None EAO LineAndiForest]
 
 Same configuration and arc as chip_smoke.py (geometry mode, 640x480, 1024
-features, chunk 32, bench capacities, default seed). After the bootstrap
+features, chunk 32, bench capacities, default seed); ``--flags`` names the
+modes to profile one after another on the same rendered frames (default
+geometry mode alone; EAO and LineAndiForest with chip_smoke.py's 8
+detector boxes a frame and 32 object slots, in line mode with 128 line
+slots). After the bootstrap
 and one warm-up chunk it times, on the host clock with a synchronise at
 each end, the next chunk's two stages separately: the ORB front end over
 the 32 images (``extract_batch``) and the tracking of the 32 frames with
@@ -14,11 +18,12 @@ more chunk with
 ``torch.profiler`` and reports the device's busy time (the sum of kernel
 times), its idle share of the chunk's wall time, the kernels that take the
 most device time, and the host-device synchronisations. Prints the card's
-name and power limit, then one JSON line.
+name and power limit, then one JSON line per mode.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -74,41 +79,66 @@ def front_end_split(cfg, imgs, reps: int = 5) -> dict:
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--flags", nargs="+", choices=("None", "EAO", "LineAndiForest"),
+                   default=["None"])
+    args = p.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device is available", file=sys.stderr)
         return 1
     import chip_smoke
-    from eao_slam_torch.config import CapacityConfig, TrackingConfig, tum3_config
-    from eao_slam_torch.runtime.scan_tracker import extract_batch
-    from eao_slam_torch.system import System
 
     ts, gt, images = chip_smoke.render_sequence()
     card = chip_smoke.card_line()
+    print(card)
+    for flag in args.flags:
+        print(json.dumps(profile_mode(flag, ts, gt, images, card)), flush=True)
+    return 0
+
+
+def profile_mode(flag: str, ts, gt, images, card: str) -> dict:
+    """Stage times and the traced chunk of one mode (see the module
+    docstring)."""
+    import torch
+
+    import chip_smoke
+    from eao_slam_torch.config import CapacityConfig, DemoFlag, TrackingConfig, tum3_config
+    from eao_slam_torch.runtime.scan_tracker import extract_batch
+    from eao_slam_torch.system import System
+
     C = chip_smoke.CHUNK
-    cfg = tum3_config().replace(
+    objects = flag != "None"
+    cfg = tum3_config(DemoFlag(flag)).replace(
         tracking=TrackingConfig(enable_loop_closing=False),
         capacity=CapacityConfig(max_keyframes=128, max_points=8192,
-                                max_features=1024, local_ba_points=2048))
+                                max_features=1024, local_ba_points=2048,
+                                **(dict(max_boxes=chip_smoke.N_BOXES, max_objects=32)
+                                   if objects else {})))
+    boxes = chip_smoke.bench_boxes(gt) if objects else [None] * len(images)
     sysm = System(cfg, chunk=C)
     tracker = sysm.tracker
     i = 0
     while not tracker.armed:
-        sysm.track_monocular(images[i], float(ts[i]))
+        sysm.track_monocular(images[i], float(ts[i]), boxes=boxes[i])
         i += 1
     for _ in range(C):                       # warm-up chunk
-        sysm.track_monocular(images[i], float(ts[i]))
+        sysm.track_monocular(images[i], float(ts[i]), boxes=boxes[i])
         i += 1
 
     def chunk_inputs(lo):
+        box_t = None
+        if objects:
+            box_t = tuple(torch.as_tensor(np.stack([b[k] for b in boxes[lo:lo + C]]),
+                                          device="cuda") for k in range(4))
         return (torch.as_tensor(images[lo:lo + C], device="cuda"),
-                np.asarray(ts[lo:lo + C], np.float32))
+                np.asarray(ts[lo:lo + C], np.float32), box_t)
 
     torch.cuda.synchronize()
-    imgs, tss = chunk_inputs(i)
+    imgs, tss, box_t = chunk_inputs(i)
     t0 = time.perf_counter()
-    batch = extract_batch(cfg, imgs, tss)
+    batch = extract_batch(cfg, imgs, tss, boxes=box_t)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tracker.carry, outs = tracker._track_chunk(tracker.carry, batch)
@@ -121,11 +151,11 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    imgs, tss = chunk_inputs(i)
+    imgs, tss, box_t = chunk_inputs(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tracker.carry, outs = tracker._extract_track(tracker.carry, imgs, tss)
+        tracker.carry, outs = tracker._extract_track(tracker.carry, imgs, tss, None, box_t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -138,8 +168,8 @@ def main() -> int:
     copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
                                                         "cuLaunchKernel", "cudaLaunchKernelExC"))
-    summary = {
-        "card": card,
+    return {
+        "card": card, "flag": flag,
         "stages_ms": stages_ms,
         "front_end_ms": front_end_ms,
         "traced_chunk": {
@@ -151,9 +181,6 @@ def main() -> int:
                                 "ms": e.self_device_time_total / 1e3} for e in top],
         },
     }
-    print(card)
-    print(json.dumps(summary))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,9 @@
 """Spread of the JAX reference's bench-arc ATE over RANSAC seeds, on the CPU.
 
     JAX_PLATFORMS=cpu python reference_ate_spread.py [--flag EAO] [--seeds 12345 1 2 3 4 5 6]
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --flag LineAndiForest --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --flag LineAndiForest --ground --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --replay-yaw DIR/yaw_calls_seed5.npz ...
 
 Runs the reference package (eao_slam_tpu) as bench.py's headline mode
 does (``--flag None``, the default) or its EAO mode (``--flag EAO``, or
@@ -21,7 +24,32 @@ an object mode also the objects built and each scene object's centre
 error: in the camera frames of the keyframes that observed the object, at
 the map's scale, ``eao_slam_torch.io.trajectory.map_object_errors``; and,
 for comparison, after one sim3 of the keyframe trajectory,
-``sim3_object_errors``), then the median and the worst.
+``sim3_object_errors``), then the median and the worst. With
+``--flag LineAndiForest`` (line detection inside the chunk program and
+line-alignment yaw) each live object's elected yaw and its yaw votes are
+printed beside the object errors (``object_yaws``); the scene's cuboids
+are axis-aligned in the first camera's frame, so the true yaw is 0. In
+line mode the frames of a chunk go through ``frame_from_image`` one at a
+time (ORB features and line segments) and the chunk through
+``ChunkedTracker.track_batch``: the fused program of ``track_images``
+holds a one-hot occupancy of [32, 16, 10, 128, 19200] for the line
+endpoints, tens of GB on a CPU host. The JAX line detector costs about a
+second a frame on the CPU: run seeds as parallel processes, each with
+about 4 GB. ``--ground`` runs chip_smoke.py's ground-alignment protocol
+instead: the first TILT_FRAMES frames of the arc with every camera tilted,
+the ground truth written by the reference's ``save_tum`` and looked up per
+bootstrap frame as the reference's ``System.set_groundtruth`` does, every
+frame tracked; it prints the first keyframe's distance from the
+initializer frame's true T_cw and the objects' yaws and votes.
+``--replay-yaw FILE ...`` runs no tracker: it takes the yaw calls that
+``port_ate_spread.py --record-yaw`` recorded from a run of the port and
+puts each call's inputs through the reference's ``yaw_sample_scores`` and
+then ``update_yaw`` (on the reference's own scores), and prints one JSON
+line a file: the calls whose counts or lines in box differ from the port's
+(exact), the largest differences of the summed errors and of ``yaw_hist``,
+the calls whose elected yaws differ by more than 1e-6 rad, and, for each
+object valid at the last call, the yaw the port and the reference elect
+there, its votes by yaw sample and the mean score of each voted sample.
 
 This is the yardstick that chip_smoke.py's ATE gate is derived from: the
 tracker is chaotic (float noise in one triangulation changes later
@@ -56,8 +84,9 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
     from eao_slam_tpu.config import CapacityConfig, TrackingConfig, tum3_config
     from eao_slam_tpu.io.trajectory import ate_rmse
     from eao_slam_tpu.runtime.frame import frame_from_image
-    from eao_slam_tpu.runtime.scan_tracker import ChunkedTracker, make_extract_track
-    from eao_slam_torch.io.trajectory import map_object_errors, sim3_object_errors
+    from eao_slam_tpu.runtime.scan_tracker import (
+        ChunkedTracker, batch_from_frames, make_extract_track)
+    from eao_slam_torch.io.trajectory import map_object_errors, object_yaws, sim3_object_errors
 
     objects = flag != "None"
     cap = CapacityConfig(max_keyframes=128, max_points=8192, max_features=1024,
@@ -74,23 +103,35 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
         return dict(zip(("boxes", "box_class", "box_score", "box_valid"),
                         (b[lo:hi] for b in boxes)))
 
+    def frame(k):
+        kw = {key: v[0] for key, v in box_kw(k, k + 1).items()}
+        return frame_from_image(cfg, images[k].astype(np.float32), **kw)
+
+    def track(lo, hi):
+        if not cfg.flag.use_yaw_lines:
+            return tracker.track_images(images[lo:hi], ts[lo:hi], **box_kw(lo, hi))
+        frames = [frame(k) for k in range(lo, hi)]
+        n = hi - lo
+        batch = batch_from_frames(frames + [frames[-1]] * (CHUNK - n),
+                                  list(ts[lo:hi]) + [ts[hi - 1]] * (CHUNK - n), with_boxes=True)
+        if n < CHUNK:
+            batch = batch._replace(active=jnp.asarray(np.arange(CHUNK) < n))
+        return tracker.track_batch(batch)
+
     i = 0
     while tracker.carry is None:
-        kw = {k: v[0] for k, v in box_kw(i, i + 1).items()}
-        tracker.bootstrap(frame_from_image(cfg, images[i].astype(np.float32), **kw),
-                          float(ts[i]))
+        tracker.bootstrap(frame(i), float(ts[i]))
         i += 1
     n_boot = i
     n_warm = warmup_frames(n_boot)
     assert n_warm > 0, f"bootstrap took {n_boot} frames"
-    tracker.track_images(images[i:i + n_warm], ts[i:i + n_warm], **box_kw(i, i + n_warm))
+    track(i, i + n_warm)
     carry = tracker.carry
     i += n_warm
     poses, states = [], []
     for _ in range(N_TIMED):
         if objects:
-            outs = tracker.track_images(images[i:i + CHUNK], ts[i:i + CHUNK],
-                                        **box_kw(i, i + CHUNK))
+            outs = track(i, i + CHUNK)
         else:
             carry, outs = extract_track(carry, jnp.asarray(images[i:i + CHUNK]),
                                         jnp.asarray(ts[i:i + CHUNK], jnp.float32))
@@ -114,6 +155,108 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
         out["object_centre_err_m"] = map_object_errors(m, tab, ts, gt, scene.obj_centers,
                                                        scene.obj_classes)
         out["object_centre_err_sim3_m"] = sim3_object_errors(m, tab, ts, gt, scene.obj_centers)
+        out["object_yaws"] = object_yaws(tab)
+    return out
+
+
+def ground_run(seed: int, scene, ts, gt, flag: str) -> dict:
+    """chip_smoke.py's ground-alignment run on the reference (see the
+    module docstring)."""
+    import os
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from chip_smoke import TILT_DEG, TILT_FRAMES, _tilt
+    from eao_slam_tpu.config import CapacityConfig, tum3_config
+    from eao_slam_tpu.geometry.camera import TUM3
+    from eao_slam_tpu.io.synthetic import project_boxes, render_image
+    from eao_slam_tpu.io.trajectory import save_tum
+    from eao_slam_tpu.io.tum import load_groundtruth, lookup_pose_matrix
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.runtime.scan_tracker import ChunkedTracker, batch_from_frames
+    from eao_slam_torch.io.trajectory import object_yaws
+
+    Q = _tilt(*TILT_DEG)
+    gt_t = np.stack([np.concatenate([T[:3, :3] @ Q.T, T[:3, 3:4]], 1) for T in gt[:TILT_FRAMES]])
+    ts = ts[:TILT_FRAMES]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "groundtruth.txt")
+        save_tum(path, ts, gt_t)
+        truth = load_groundtruth(path)
+    cfg = tum3_config(flag).replace(capacity=CapacityConfig(
+        max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048,
+        max_boxes=N_BOXES, max_objects=32), seed=seed)
+    tracker = ChunkedTracker(cfg, chunk=CHUNK)
+
+    def frame(k):
+        b = project_boxes(scene, TUM3, gt_t[k], N_BOXES)
+        return frame_from_image(cfg, render_image(scene, TUM3, gt_t[k]).astype(np.float32),
+                                **dict(zip(("boxes", "box_class", "box_score", "box_valid"), b)))
+
+    i = 0
+    while tracker.carry is None:
+        tracker.bootstrap(frame(i), float(ts[i]), gt_pose=lookup_pose_matrix(truth, ts[i]))
+        i += 1
+    slot = tracker.inner.kf_slots[0]
+    kf0_t = float(np.asarray(tracker.inner.map.kf_timestamp)[slot])
+    kf0 = np.asarray(tracker.inner.map.kf_pose)[slot]
+    while i < TILT_FRAMES:
+        n = min(CHUNK, TILT_FRAMES - i)
+        frames = [frame(k) for k in range(i, i + n)]
+        batch = batch_from_frames(frames + [frames[-1]] * (CHUNK - n),
+                                  list(ts[i:i + n]) + [ts[i + n - 1]] * (CHUNK - n),
+                                  with_boxes=True)
+        if n < CHUNK:
+            batch = batch._replace(active=jnp.asarray(np.arange(CHUNK) < n))
+        tracker.track_batch(batch)
+        i += n
+    i0 = int(np.argmin(np.abs(ts - kf0_t)))
+    tab = {k: np.asarray(v) for k, v in tracker.carry.table._asdict().items()}
+    return {"seed": seed, "flag": flag, "ground": True, "init_frame": i0,
+            "first_kf_max_abs_diff": float(np.abs(kf0 - gt_t[i0]).max()),
+            "tracked": len(tracker.frame_trajectory()[0]), "object_yaws": object_yaws(tab)}
+
+
+def replay_yaw(path: str) -> dict:
+    """The reference's yaw functions on the port's recorded inputs (see the
+    module docstring)."""
+    import jax.numpy as jnp
+
+    from eao_slam_tpu.geometry.camera import TUM3
+    from eao_slam_tpu.objects.state import empty_object_table
+    from eao_slam_tpu.objects.yaw import update_yaw, yaw_sample_scores
+
+    z = np.load(path)
+    n, J = z["in_valid"].shape
+    fields = ("valid", "cls", "center", "cub_min", "cub_max", "yaw", "yaw_hist")
+    out = {"file": path, "calls": int(n), "counts_or_lines_differ": 0, "errs_deg": 0.0,
+           "yaw_hist": 0.0, "yaw_differs": 0}
+    for i in range(n):
+        table = empty_object_table(J, z["in_yaw_hist"].shape[2])._replace(
+            **{f: jnp.asarray(z["in_" + f][i]) for f in fields})
+        targets = jnp.asarray(z["targets"][i].astype(np.int32))
+        counts, errs, n_lines = yaw_sample_scores(
+            TUM3, table, targets, *(jnp.asarray(z[k][i]) for k in ("boxes", "T_cw", "lines",
+                                                                   "line_valid")))
+        if not (np.array_equal(np.asarray(counts), z["counts"][i])
+                and np.array_equal(np.asarray(n_lines), z["n_lines"][i])):
+            out["counts_or_lines_differ"] += 1
+        out["errs_deg"] = max(out["errs_deg"], float(np.abs(np.asarray(errs) - z["errs"][i]).max()))
+        new = update_yaw(table, targets, counts, errs, n_lines)
+        out["yaw_hist"] = max(out["yaw_hist"],
+                              float(np.abs(np.asarray(new.yaw_hist) - z["out_yaw_hist"][i]).max()))
+        out["yaw_differs"] += int(np.abs(np.asarray(new.yaw) - z["out_yaw"][i]).max() > 1e-6)
+    last = {"valid": z["in_valid"][-1], "cls": z["in_cls"][-1]}
+    hist = np.asarray(new.yaw_hist)
+    out["objects"] = [
+        {"slot": int(j), "cls": int(last["cls"][j]),
+         "port_yaw_deg": float(np.rad2deg(z["out_yaw"][-1][j])),
+         "reference_yaw_deg": float(np.rad2deg(np.asarray(new.yaw)[j])),
+         "votes_by_sample": hist[j, :, 0].astype(int).tolist(),
+         "mean_score_by_sample": {int(s): float(hist[j, s, 1])
+                                  for s in np.flatnonzero(hist[j, :, 0])}}
+        for j in np.flatnonzero(last["valid"])]
     return out
 
 
@@ -122,17 +265,29 @@ def main() -> None:
     p.add_argument("--seeds", type=int, nargs="+", default=[12345, 1, 2, 3, 4, 5, 6])
     p.add_argument("--flag", default="None",
                    help="DemoFlag value: None (geometry) or a flag of the object layer")
+    p.add_argument("--ground", action="store_true",
+                   help="chip_smoke.py's tilted ground-alignment run instead of the arc")
+    p.add_argument("--replay-yaw", nargs="+", metavar="FILE",
+                   help="the reference's yaw functions on yaw calls recorded from the port")
     args = p.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.replay_yaw:
+        for path in args.replay_yaw:
+            print(json.dumps(replay_yaw(path)), flush=True)
+        return
     from eao_slam_tpu.geometry.camera import TUM3
     from eao_slam_tpu.io.synthetic import (
         make_arc_trajectory, make_room_scene, project_boxes, render_image)
 
     scene = make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
     ts, gt = make_arc_trajectory(n_frames=N_FRAMES, sweep_deg=60.0)
+    if args.ground:
+        for seed in args.seeds:
+            print(json.dumps(ground_run(seed, scene, ts, gt, args.flag)), flush=True)
+        return
     images = np.stack([render_image(scene, TUM3, T) for T in gt])
     boxes = None
     if args.flag != "None":
@@ -149,6 +304,9 @@ def main() -> None:
     if boxes is not None:
         summary["min_objects"] = min(r["objects"] for r in runs)
         summary["max_object_centre_err_m"] = max(max(r["object_centre_err_m"]) for r in runs)
+        summary["max_supported_yaw_err_deg"] = max(
+            [abs(o["yaw_deg"]) for r in runs for o in r["object_yaws"] if o["votes"] >= 3],
+            default=None)
     print(json.dumps(summary))
 
 

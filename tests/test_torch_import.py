@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no reference package, the card by default,
-the default configuration builds, the object-layer flags without lines
-construct, and the unported modes refuse loudly."""
+the default configuration builds, the object-layer flags construct (with
+and without line-alignment yaw), and the unported modes refuse loudly."""
 
 import subprocess
 import sys
@@ -25,7 +25,9 @@ def test_port_imports_no_jax():
         "need = {'eao_slam_torch.io.tum', 'eao_slam_torch.objects.association', "
         "'eao_slam_torch.objects.resolve', 'eao_slam_torch.objects.merge', "
         "'eao_slam_torch.objects.iforest', 'eao_slam_torch.objects.stats', "
-        "'eao_slam_torch.objects.boxes', 'eao_slam_torch.objects.state'}\n"
+        "'eao_slam_torch.objects.boxes', 'eao_slam_torch.objects.state', "
+        "'eao_slam_torch.objects.yaw', 'eao_slam_torch.ops.lines', "
+        "'eao_slam_torch.io.trajectory'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -71,18 +73,26 @@ def test_default_configuration_builds():
 
 @pytest.mark.parametrize("case", ["LineAndiForest", "Full", "per_frame"])
 def test_unported_modes_raise(case):
-    """The line-enabled flags need ops/lines.py and objects/yaw.py (item
-    10); the interactive tracker is item 13."""
+    """FULL needs its offline dense phase (item 12) and the interactive
+    tracker is item 13; LineAndiForest, ported, no longer refuses, and
+    FULL's refusal no longer names the line layer (item 10)."""
+    from eao_slam_torch.config import check_supported
     from eao_slam_torch.system import System
 
     if case == "per_frame":
         with pytest.raises(NotImplementedError, match="item 13"):
             System(_cfg(), chunked=False, device="cpu")
+    elif case == "Full":
+        for build in (lambda: System(_cfg(flag=DemoFlag(case)), device="cpu"),
+                      lambda: System(flag=case, device="cpu")):
+            with pytest.raises(NotImplementedError, match="item 12") as err:
+                build()
+            assert "item 10" not in str(err.value)
     else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            System(_cfg(flag=DemoFlag(case)), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            System(flag=case, device="cpu")
+        check_supported(_cfg(flag=DemoFlag(case)))
+        for sysm in (System(_cfg(flag=DemoFlag(case)), device="cpu"),
+                     System(flag=case, device="cpu")):
+            assert sysm.cfg.flag.use_yaw_lines and not sysm.cfg.flag.semidense_enabled
 
 
 @pytest.mark.parametrize("flag", ["EAO", "iForest", "NA", "IoU", "NP"])
@@ -130,7 +140,8 @@ def test_config_matches_reference_fields_and_defaults():
     assert {f.value for f in tc.DemoFlag} == {f.value for f in jc.DemoFlag}
     for f in tc.DemoFlag:
         j = jc.DemoFlag(f.value)
-        for prop in ("objects_enabled", "use_iou", "use_nonparam", "use_ttest", "use_yaw_lines"):
+        for prop in ("objects_enabled", "use_iou", "use_nonparam", "use_ttest", "use_yaw_lines",
+                     "semidense_enabled"):
             assert getattr(f, prop) == getattr(j, prop), (f, prop)
     assert tc.tum3_config().seed == jc.tum3_config().seed
     assert tc.tum3_config().camera == tuple(jc.tum3_config().camera)
