@@ -68,8 +68,9 @@ Phases, in order; any failure exits non-zero:
      tests/test_objects_e2e.py (after one sim3 of the keyframe trajectory);
   9. line mode (DemoFlag.LINE_IFOREST: the object layer with line detection
      in the chunk's front end and line-alignment yaw) at the EAO phase's
-     widths with 128 line slots, the same arc, seeds 12345 and 1-6, the
-     same protocol. Gates, on every run: as the EAO phase's, with limits
+     widths with 128 line slots, the same arc, seeds 12345 and 1-4 (five;
+     seven before the FULL phase needed the time), the same protocol.
+     Gates, on every run: as the EAO phase's, with limits
      1.5 times the reference's line-mode spread (reference_ate_spread.py
      --flag LineAndiForest), and yaw votes above 0; one frame's yaw pass
      on the default seed's final state launches kernels, and neither
@@ -90,7 +91,26 @@ Phases, in order; any failure exits non-zero:
      gravity. Last, the detector on the card against the detector on the
      CPU on frames 0, 60 and 120: valid counts within 2, >= 90 % of the
      card's segments within 1 px of a CPU segment;
- 10. print the host-clock time of each between-chunk pass (after a
+ 10. DemoFlag.FULL: the online run of the default seed at the line phase's
+     widths and protocol (line mode's program with the keyframe images
+     kept): the line phase's gates, and its timed poses equal to the line
+     phase's default-seed run to 1e-6; fps printed. Then bench.py's dense
+     protocol: FULL over the first 8 + 2 x 32 frames of the arc, then
+     System.shutdown(semidense=True), timed between synchronises; the
+     stages again from the same state with a synchronise between them
+     (pass 1, the inter-keyframe check, 3D lines, TSDF, marching
+     tetrahedra); one traced shutdown (kernel launches, host
+     synchronisations); the counts of valid semi-dense points (gated
+     above 0), 3D segments and triangles, beside the JAX reference's on
+     the CPU (REFERENCE_DENSE: on this input it fits no multi-view segment
+     and extracts no triangle). The same dense phase on the CPU from a
+     checkpoint of the card's state and images must agree with the card's
+     (DENSE_* tolerances). Then the reference's accuracy fixtures on the
+     card (tests/test_semidense.py's four views, tests/test_mesh.py's flat
+     wall, tests/test_lines3d.py's segment) and, printed, the cloud's
+     quality against ray-cast depth (evaluation.evaluate_reconstruction,
+     and the same ICP started from the keyframe trajectory's sim3);
+ 11. print the host-clock time of each between-chunk pass (after a
      synchronise; medians where a pass repeats) and its share of a chunk,
      the card's name and power limit, one JSON line describing every
      kernel, and last the JSON result line.
@@ -181,6 +201,37 @@ GROUND_TOL = 1e-4
 GROUND_REF_WORST_YAW_DEG = 23.2759
 GROUND_YAW_LIMIT_DEG = max(LINE_YAW_LIMIT_DEG, GROUND_REF_WORST_YAW_DEG + 3.1)
 CARD_CPU_FRAMES = (0, 60, 120)
+# the line phase runs the first five seeds (seven before the FULL phase came,
+# which needed its time)
+LINE_SEEDS = SEEDS[:5]
+
+# FULL phase: bench.py's dense protocol (_semidense_numbers): FULL over the
+# first 8 + 2 x 32 frames of the arc, then shutdown's offline dense phase.
+# The JAX reference on the CPU on the same input (reference_ate_spread.py
+# --dense): 17 keyframes, 7822 valid semi-dense points, 0 3D segments, 0
+# triangles (REFERENCE_DENSE). The card is held to the port on the CPU
+# from the same tracker state and images (a checkpoint): the edge pixels on
+# >= 99.9 % of slots (a Sobel magnitude or a rounded projection one ulp
+# across an integer moves one), validity on >= 99 %, the 3D segment count
+# within 1 and each segment within 1e-4 m, the triangle count within 0.5 %
+# and the mean distance from a card vertex to the nearest CPU vertex under
+# 0.1 voxel. The inverse depths are held to the phase's own sensitivity on
+# this input: the share of pixels valid in both whose inverse depths differ
+# by more than 1e-4 relative may be at most twice (plus 0.5 %) the share by
+# which the CPU run differs from itself when every keyframe pose moves by
+# one ulp. On this input the sweep's score curves are flat and its
+# Gauss-Newton refinement divides by small sums: a one-ulp pose change
+# moves 6-7 % of the pixels beyond 1e-4 (measured on an NVIDIA H100 80GB
+# HBM3 at 700 W); on the reference's 4-view fixture the card and the CPU
+# differ there on 0.06 % of the pixels.
+DENSE_FRAMES = 8 + 2 * 32
+REFERENCE_DENSE = {"keyframes": 17, "semidense_valid": 7822, "segments": 0, "triangles": 0}
+DENSE_PIXELS_AGREE = 0.999
+DENSE_VALID_AGREE = 0.99
+DENSE_RHO_RTOL = 1e-4
+DENSE_RHO_NOISE_FACTOR = 2.0
+DENSE_RHO_NOISE_MARGIN = 0.005
+FULL_POSE_TOL = 1e-6
 
 CHUNK = 32
 N_TIMED = 4
@@ -895,15 +946,15 @@ def run_lines(ts, gt, images, geometry: dict, eao: dict) -> dict:
           f"synchronises): the line layer {layer:.1f} ms a chunk; LineAndiForest "
           f"{first['fps']:.2f} fps, EAO {eao['fps']:.2f} fps, geometry {geometry['fps']:.2f} fps")
     runs = [first]
-    for seed in SEEDS[1:]:
+    for seed in LINE_SEEDS[1:]:
         runs.append(run_main_path(ts, gt, images, seed, boxes=boxes, flag="LineAndiForest"))
         check_line_run(runs[-1])
     median_ate = float(np.median([r["ate_m"] for r in runs]))
     worst_yaw = max([abs(o["yaw_deg"]) for r in runs for o in r["object_yaws"] if o["votes"] >= 3],
                     default=None)
     n_beyond = sum(bool(yaws_beyond(r["object_yaws"], LINE_YAW_LIMIT_DEG)) for r in runs)
-    print(f"LineAndiForest over seeds {list(SEEDS)}: sim3 ATE median {median_ate:.4f} m (limit "
-          f"{LINE_MEDIAN_ATE_LIMIT_M:.4f} m), worst {max(r['ate_m'] for r in runs):.4f} m "
+    print(f"LineAndiForest over seeds {list(LINE_SEEDS)}: sim3 ATE median {median_ate:.4f} m "
+          f"(limit {LINE_MEDIAN_ATE_LIMIT_M:.4f} m), worst {max(r['ate_m'] for r in runs):.4f} m "
           f"(limit {LINE_ATE_LIMIT_M:.4f} m); objects {[r['objects'] for r in runs]}; object "
           f"centre error worst {max(max(r['object_centre_err_m']) for r in runs):.3f} m (limit "
           f"{LINE_OBJECT_LIMIT_M:.3f} m); supported yaw worst {worst_yaw} deg, {n_beyond} of "
@@ -913,7 +964,8 @@ def run_lines(ts, gt, images, geometry: dict, eao: dict) -> dict:
         raise AssertionError(f"LineAndiForest median sim3 ATE {median_ate:.4f} m >= "
                              f"{LINE_MEDIAN_ATE_LIMIT_M:.4f} m")
     return {"fps": first["fps"], "launches": launches, "median_ate_m": median_ate,
-            "worst_supported_yaw_deg": worst_yaw, "runs_with_yaw_beyond_limit": n_beyond,
+            "default_poses": first["poses"], "worst_supported_yaw_deg": worst_yaw,
+            "runs_with_yaw_beyond_limit": n_beyond,
             "yaw_pass": yaw_pass,
             "by_seed": {r["seed"]: {k: r[k] for k in ("fps", "tracked", "total", "ate_m",
                                                      "objects", "object_classes",
@@ -925,6 +977,336 @@ def run_lines(ts, gt, images, geometry: dict, eao: dict) -> dict:
             "line_chunk_ms": line_chunk, "line_layer_ms": layer,
             "ground_alignment": run_ground_alignment(ts, gt),
             "card_against_cpu": card_against_cpu(images)}
+
+
+def full_config():
+    from eao_slam_torch.config import CapacityConfig, DemoFlag, tum3_config
+
+    return tum3_config(DemoFlag.FULL).replace(capacity=CapacityConfig(
+        max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048,
+        max_boxes=N_BOXES, max_objects=32))
+
+
+def dense_stage_times(sysm) -> dict:
+    """The offline dense phase once more from the System's state, stage by
+    stage with a synchronise between stages (host clock): pass 1 (sweeps
+    and fusion), the inter-keyframe check, 3D lines, the TSDF (densify and
+    fuse), marching tetrahedra. Returns seconds per stage."""
+    import torch
+
+    from eao_slam_torch.dense import mesh, semidense
+
+    cam = sysm.cfg.camera
+    dev = sysm.device
+    times = {}
+
+    def timed(name, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    slots, imgs, poses, ranges, nbs = sysm.semidense_inputs()
+    I = torch.as_tensor(imgs, device=dev)
+    T = torch.as_tensor(poses, device=dev)
+    px, rho, sig, val = timed("pass 1", lambda: semidense.sweep_and_fuse(
+        cam, I, T, ranges, nbs, sysm.cfg.semidense))
+    rho, val = timed("inter-keyframe check", lambda: semidense.cross_check(
+        cam, T, nbs, px, rho, sig, val, cam.height, cam.width))
+    res = semidense.SemiDenseResult(px, rho, sig, val, semidense.backproject(cam, T, px, rho))
+    timed("3D lines", sysm._run_lines3d)
+    pts = res.points_w[res.valid].cpu().numpy()
+    lo = np.percentile(pts, 2, axis=0) - 0.2
+    hi = np.percentile(pts, 98, axis=0) + 0.2
+    voxel = np.float32((hi - lo).max() / 95)
+    origin = torch.as_tensor(np.asarray(lo, np.float32), device=dev)
+
+    def tsdf():
+        dms = torch.stack([mesh.densify_depth(res.pixels[k], res.inv_depth[k], res.valid[k],
+                                              cam.height, cam.width) for k in range(len(slots))])
+        return mesh.tsdf_fuse(cam, dms, T, origin, voxel)
+
+    field, weight = timed("TSDF", tsdf)
+    timed("marching tetrahedra", lambda: mesh.marching_tetrahedra(field, weight, origin, voxel))
+    return times
+
+
+def dense_agreement(a, b) -> dict:
+    """How far two Systems' dense products agree (``a`` the card's, ``b``
+    the CPU's): the shares of equal edge pixels and of equal validity, the
+    largest relative inverse-depth difference where both are valid, the
+    segment counts and the largest endpoint difference of matched segments
+    (unordered), the triangle counts and the mean distance from each of
+    a's vertices to b's nearest, in voxels."""
+    ra, rb = a._semidense_result, b._semidense_result
+    pa, pb = ra.pixels.cpu().numpy(), rb.pixels.cpu().numpy()
+    va, vb = ra.valid.cpu().numpy(), rb.valid.cpu().numpy()
+    both = va & vb & (np.abs(pa - pb).max(-1) == 0)
+    da, db = ra.inv_depth.cpu().numpy()[both], rb.inv_depth.cpu().numpy()[both]
+    rel = np.abs(da - db) / np.abs(db)
+    out = {"pixels_equal": float((np.abs(pa - pb).max(-1) == 0).mean()),
+           "valid_equal": float((va == vb).mean()), "valid_card": int(va.sum()),
+           "valid_cpu": int(vb.sum()),
+           "inv_depth_within_rtol": float((rel <= DENSE_RHO_RTOL).mean()) if both.any() else 1.0,
+           "inv_depth_max_rel": float(rel.max()) if both.any() else 0.0,
+           "segments_card": len(a._lines3d), "segments_cpu": len(b._lines3d),
+           "triangles_card": len(a._mesh_tris), "triangles_cpu": len(b._mesh_tris)}
+    la, lb = a._lines3d, b._lines3d
+    if len(la) and len(lb):
+        d = np.abs(la[:, None] - lb[None]).max(-1)
+        flip = np.abs(la[:, None] - lb[None][..., [3, 4, 5, 0, 1, 2]]).max(-1)
+        out["segment_max_diff_m"] = float(np.minimum(d, flip).min(1).max())
+    ta, tb = a._mesh_tris, b._mesh_tris
+    if len(ta) and len(tb):
+        from eao_slam_torch.evaluation import nearest_neighbors
+
+        pts = ra.points_w.cpu().numpy()[va]
+        voxel = float((np.percentile(pts, 98, axis=0) - np.percentile(pts, 2, axis=0)
+                       + 0.4).max() / 95)
+        _, dist = nearest_neighbors(ta.reshape(-1, 3), tb.reshape(-1, 3), device="cuda")
+        out["mesh_mean_vertex_dist_voxels"] = float(dist.mean() / voxel)
+    return out
+
+
+def nudged_copy(system):
+    """``system`` (on the CPU) with every keyframe pose moved by one ulp
+    towards +inf: the dense phase's own sensitivity to a last-bit change."""
+    import torch
+
+    c = system.tracker.carry
+    pose = c.m.kf_pose
+    system.tracker.carry = c._replace(m=c.m._replace(
+        kf_pose=torch.nextafter(pose, torch.full_like(pose, float("inf")))))
+    return system
+
+
+def check_dense_agreement(g: dict, floor: dict) -> None:
+    """``g``: the card against the CPU; ``floor``: the CPU against itself
+    with the poses nudged by one ulp (the DENSE_* constants)."""
+    bad = []
+    if g["pixels_equal"] < DENSE_PIXELS_AGREE:
+        bad.append("edge pixels")
+    if g["valid_equal"] < DENSE_VALID_AGREE:
+        bad.append("validity")
+    if (1 - g["inv_depth_within_rtol"] > DENSE_RHO_NOISE_FACTOR
+            * (1 - floor["inv_depth_within_rtol"]) + DENSE_RHO_NOISE_MARGIN):
+        bad.append("inverse depth")
+    if abs(g["segments_card"] - g["segments_cpu"]) > 1 or g.get("segment_max_diff_m", 0) > 1e-4:
+        bad.append("3D segments")
+    if (abs(g["triangles_card"] - g["triangles_cpu"]) > 0.005 * max(g["triangles_cpu"], 1)
+            or g.get("mesh_mean_vertex_dist_voxels", 0) >= 0.1):
+        bad.append("mesh")
+    if bad:
+        raise AssertionError(f"dense phase: card and CPU disagree on {', '.join(bad)}: {g}")
+
+
+def _render_depth(T_cw):
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import depth_cloud
+
+    return depth_cloud(_SCENE, TUM3, T_cw[None, 1], T_cw[0])
+
+
+def cloud_quality(sysm, ts, gt) -> dict:
+    """The semi-dense export against the ray-cast depth of the retained
+    keyframes at their true poses (every 8th pixel), in the camera frame of
+    the map's first keyframe: evaluation.evaluate_reconstruction as it is
+    (its ICP starts from the centroids and RMS radii), and the same scaled
+    ICP started from the sim3 of the keyframe centres onto their true
+    centres, then the mean (which far outliers dominate) and the median
+    distance of the whole cloud (printed, not gated)."""
+    import tempfile
+
+    from eao_slam_torch.evaluation import (
+        evaluate_reconstruction, icp_register, load_cloud, mean_cloud_distance,
+        nearest_neighbors, random_downsample)
+    from eao_slam_torch.io.trajectory import umeyama_alignment
+
+    m = sysm.tracker.map
+    kf_ts = m.kf_timestamp.cpu().numpy()
+    kf_valid = m.kf_valid.cpu().numpy()
+    first = int(np.flatnonzero(kf_valid)[np.argmin(kf_ts[kf_valid])])
+    T_ref = gt[int(np.argmin(np.abs(ts - kf_ts[first])))]
+    slots = sysm._semidense_slots
+    frames = [int(np.argmin(np.abs(ts - kf_ts[s]))) for s in slots]
+    with multiprocessing.get_context("spawn").Pool(
+            min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(bench_scene(),)) as pool:
+        truth = np.concatenate(pool.map(_render_depth, [np.stack([T_ref, gt[f]])
+                                                         for f in frames]))
+    est_c = centers(m.kf_pose.cpu().numpy()[slots])
+    true_c = centers(gt[frames]) @ T_ref[:3, :3].T + T_ref[:3, 3]
+    init = umeyama_alignment(est_c, true_c, with_scale=True)
+    with tempfile.TemporaryDirectory() as d:
+        est_path, gt_path = os.path.join(d, "semidense.obj"), os.path.join(d, "truth.xyz")
+        n_est = sysm.save_semidense_obj(est_path)
+        np.savetxt(gt_path, truth)
+        as_is = evaluate_reconstruction(est_path, gt_path, device="cuda")
+        est = load_cloud(est_path)
+        gt_cloud = load_cloud(gt_path)
+    s, R, t = icp_register(random_downsample(est, 0.1, seed=1),
+                           random_downsample(gt_cloud, 0.1, seed=2), init=init, device="cuda")
+    _, dist = nearest_neighbors((s * (R @ est.T)).T + t, gt_cloud, device="cuda")
+    return {"exported_points": n_est, "truth_points": len(truth), "evaluate_reconstruction": as_is,
+            "trajectory_init": {"scale": float(s), "mean_distance": mean_cloud_distance(
+                est, gt_cloud, (s, R, t), device="cuda"), "median_distance": float(np.median(dist)),
+                "init_mean_distance": mean_cloud_distance(est, gt_cloud, init, device="cuda")}}
+
+
+def dense_fixtures() -> dict:
+    """The reference's accuracy fixtures on the card: tests/test_semidense.py's
+    four rendered views (median relative depth error < 0.05, >= 60 % of
+    fused pixels under 0.1, > 300 fused), tests/test_mesh.py's flat wall
+    (the triangles on z = 4 within 2.1 voxels, > 200 of them) and
+    tests/test_lines3d.py's segment (recovered within 0.1 m)."""
+    import torch
+
+    from eao_slam_torch.dense import lines3d, mesh, semidense
+    from eao_slam_torch.geometry.camera import TUM3
+    from eao_slam_torch.io.synthetic import look_at, make_room_scene, render_image
+
+    scene = make_room_scene(seed=9, n_landmarks=50, n_objects=2)
+    poses, imgs, depths = [], [], []
+    for i in range(4):
+        T = look_at(np.array([-0.12 + 0.08 * i, 0.0, 0.0]),
+                    np.array([0.0, 0.0, 4.5])).astype(np.float32)
+        img, z = render_image(scene, TUM3, T, return_depth=True)
+        poses.append(T)
+        imgs.append(img.astype(np.float32))
+        depths.append(z)
+    res = semidense.semidense_reconstruct(
+        TUM3, np.stack(imgs), np.stack(poses), np.asarray([[2.0, 8.0]] * 4, np.float32),
+        [[j for j in range(4) if j != k][:3] for k in range(4)], n_pix=4096, n_depth=96)
+    uv, val, rho = (x[0].cpu().numpy() for x in (res.pixels, res.valid, res.inv_depth))
+    gt_z = depths[0][uv[:, 1].astype(int), uv[:, 0].astype(int)]
+    ok = val & np.isfinite(gt_z)
+    rel = np.abs(1.0 / np.maximum(rho[ok], 1e-6) - gt_z[ok]) / gt_z[ok]
+    out = {"semidense_fused": int(ok.sum()), "semidense_median_rel_err": float(np.median(rel)),
+           "semidense_share_under_0.1": float((rel < 0.1).mean())}
+
+    cam = TUM3._replace(width=160, height=120, fx=140.0, fy=140.0, cx=80.0, cy=60.0)
+    eye = torch.eye(3, 4, device="cuda")[None]
+    origin = torch.as_tensor([-1.0, -1.0, 3.0], device="cuda")
+    voxel = np.float32(2.0 / 47)
+    field, w = mesh.tsdf_fuse(cam, torch.full((1, 120, 160), 4.0, device="cuda"), eye, origin,
+                              voxel, nx=48, ny=48, nz=48)
+    tris, tv = mesh.marching_tetrahedra(field, w, origin, voxel, min_weight=1.0, max_tris=50_000)
+    tris = tris[tv].cpu().numpy()
+    out.update(wall_triangles=len(tris),
+               wall_max_err_voxels=float(np.abs(tris[..., 2] - 4.0).max() / voxel))
+
+    rng = np.random.default_rng(12345)
+    p1, p2 = np.array([-0.8, -0.2, 4.0]), np.array([0.9, 0.4, 5.0])
+    X = p1 + np.linspace(0, 1, 400)[:, None] * (p2 - p1)
+    uv = np.stack([TUM3.fx * X[:, 0] / X[:, 2] + TUM3.cx, TUM3.fy * X[:, 1] / X[:, 2] + TUM3.cy],
+                  -1).astype(np.float32)
+    rho = (1.0 / X[:, 2] * (1.0 + rng.normal(0, 0.003, len(X)))).astype(np.float32)
+    segs = torch.zeros((8, 4), device="cuda")
+    segs[0] = torch.as_tensor([uv[0, 0], uv[0, 1], uv[-1, 0], uv[-1, 1]])
+    valid = torch.zeros(8, dtype=torch.bool, device="cuda")
+    valid[0] = True
+    fit = lines3d.fit_3d_segments(TUM3, segs, valid, torch.as_tensor(uv, device="cuda"),
+                                  torch.as_tensor(rho, device="cuda"),
+                                  torch.ones(len(uv), dtype=torch.bool, device="cuda"), eye[0])
+    got = fit.seg[0].cpu().numpy()
+    err = max(min(np.linalg.norm(e - p1), np.linalg.norm(e - p2)) for e in (got[:3], got[3:]))
+    out.update(segment_valid=bool(fit.valid[0]), segment_err_m=float(err))
+    print("dense fixtures on the card: " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    if not (out["semidense_fused"] > 300 and out["semidense_median_rel_err"] < 0.05
+            and out["semidense_share_under_0.1"] > 0.6):
+        raise AssertionError(f"semi-dense accuracy fixture failed: {out}")
+    if not (out["wall_triangles"] > 200 and out["wall_max_err_voxels"] < 2.1):
+        raise AssertionError(f"flat-wall fixture failed: {out}")
+    if not (out["segment_valid"] and out["segment_err_m"] < 0.1):
+        raise AssertionError(f"segment recovery fixture failed: {out}")
+    return out
+
+
+def run_full(ts, gt, images, lines: dict) -> dict:
+    """The FULL phase: the online run (line mode's program, keyframe images
+    kept; poses equal to the line phase's default seed), bench.py's dense
+    protocol on the card (timed, then stage by stage, then traced), the same
+    dense phase on the CPU from a checkpoint of the card's state, the
+    reference's accuracy fixtures and the cloud's quality."""
+    import tempfile
+
+    import torch
+
+    from eao_slam_torch.ops import fast_nms
+    from eao_slam_torch.system import System
+
+    boxes = bench_boxes(gt)
+    fast_nms.reset_launches()
+    online = run_main_path(ts, gt, images, SEEDS[0], boxes=boxes, flag="Full")
+    launches = dict(fast_nms.launches)
+    check_eao_run(online, LINE_ATE_LIMIT_M, LINE_OBJECT_LIMIT_M, "Full")
+    same = online["poses"].shape == lines["default_poses"].shape
+    pose_diff = float(np.abs(online["poses"] - lines["default_poses"]).max()) if same else np.inf
+    print(f"FULL online, default seed: {online['fps']:.2f} fps, poses against line mode's "
+          f"max |diff| {pose_diff:.3g}; launches {launches}")
+    if launches["fast_nms_tile_max"] <= 0:
+        raise AssertionError("the FULL path never launched fast_nms_tile_max")
+    if not pose_diff <= FULL_POSE_TOL:
+        raise AssertionError(f"FULL's online poses differ from line mode's by {pose_diff:.3g}")
+
+    cfg = full_config()
+    sysm = System(cfg, chunk=CHUNK)
+    for k in range(DENSE_FRAMES):
+        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k])
+    sysm.flush()
+    sync(sysm.device)
+    t0 = time.perf_counter()
+    res = sysm.shutdown(semidense=True)
+    sync(sysm.device)
+    dt = time.perf_counter() - t0
+    if res is None:
+        raise AssertionError(f"the dense phase did not run ({len(sysm._kf_images)} keyframe "
+                             f"images kept)")
+    n_kf = len(sysm._semidense_slots)
+    counts = {"semidense_valid": int(res.valid.sum()), "segments": len(sysm._lines3d),
+              "triangles": len(sysm._mesh_tris)}
+    stages = dense_stage_times(sysm)
+    traced = traced_calls(lambda: sysm.shutdown(semidense=True))
+    print(f"dense phase on the card: {n_kf} keyframes in {dt:.3f} s, {dt / n_kf:.3f} s per "
+          f"keyframe (host clock between synchronises, first call); stages, again from the "
+          f"same state: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; traced: {traced['launches']} kernel launches, {traced['syncs']} host "
+          f"synchronisations, {traced['host_copies']} copies between host and card; "
+          f"{counts['semidense_valid']} valid semi-dense points, {counts['segments']} 3D "
+          f"segments, {counts['triangles']} triangles (the reference on the CPU: "
+          f"{REFERENCE_DENSE})")
+    if counts["semidense_valid"] <= 0:
+        raise AssertionError("the dense phase fused no semi-dense point")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "full.ckpt")
+        sysm.save_checkpoint(path)
+        host, nudged = (System(cfg, chunk=CHUNK, device="cpu") for _ in range(2))
+        host.load_checkpoint(path)
+        nudged.load_checkpoint(path)
+    t0 = time.perf_counter()
+    host.shutdown(semidense=True)
+    dt_cpu = time.perf_counter() - t0
+    nudged_copy(nudged).shutdown(semidense=True)
+    agree = dense_agreement(sysm, host)
+    floor = dense_agreement(host, nudged)
+    print(f"dense phase, card against CPU (same state and images, a checkpoint; the CPU run "
+          f"{dt_cpu:.1f} s): {agree}; the CPU against itself with the poses one ulp apart: "
+          f"{floor}")
+    check_dense_agreement(agree, floor)
+    fixtures = dense_fixtures()
+    quality = cloud_quality(sysm, ts, gt)
+    print(f"semi-dense cloud quality (printed, not gated): {quality}")
+    torch.cuda.empty_cache()
+    return {"fps": online["fps"], "launches": launches, "online_pose_diff_vs_line": pose_diff,
+            "online": {k: online[k] for k in ("tracked", "total", "ate_m", "objects",
+                                              "object_classes", "object_centre_err_m")},
+            "dense": {"keyframes": n_kf, "seconds": dt, "s_per_kf": dt / n_kf, "stages_s": stages,
+                      "traced": traced, **counts, "reference_cpu": REFERENCE_DENSE},
+            "card_against_cpu": agree, "cpu_against_one_ulp": floor, "cpu_seconds": dt_cpu,
+            "fixtures": fixtures,
+            "cloud_quality": quality}
 
 
 def _reloc_errors(tracker, gt_of_step, step, T_rec, n_local: int = 8):
@@ -1230,6 +1612,7 @@ def main() -> int:
     print(f"EAO {eao['fps']:.2f} fps against geometry {path['fps']:.2f} fps on this card "
           f"(default seed, 4 timed chunks each)")
     lines = run_lines(ts, gt, images, path, eao)
+    full = run_full(ts, gt, images, lines)
 
     long_run = run_long(ts, gt, images)
     circuit = run_circuit()
@@ -1251,6 +1634,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_eao_path": eao["launches"][name],
             "launches_line_path": lines["launches"][name],
+            "launches_full_path": full["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
@@ -1267,8 +1651,9 @@ def main() -> int:
         "ate_m_by_seed": {r["seed"]: r["ate_m"] for r in runs},
         "loops_by_seed": {r["seed"]: r["loops"] for r in runs}, "card": card}}))
     print(json.dumps({"eao": {k: v for k, v in eao.items() if k != "launches"}, "card": card}))
-    print(json.dumps({"lines": {k: v for k, v in lines.items() if k != "launches"},
-                      "card": card}))
+    print(json.dumps({"lines": {k: v for k, v in lines.items()
+                                if k not in ("launches", "default_poses")}, "card": card}))
+    print(json.dumps({"full": {k: v for k, v in full.items() if k != "launches"}, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Configuration of the port: the same frozen dataclasses as the reference
 package's config, limited to the fields chunked tracking (geometry mode,
-the EAO object layer and line-alignment yaw) reads, with the reference's
-names and defaults.
+the EAO object layer, line-alignment yaw) and the offline dense phase
+read, with the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -13,9 +13,10 @@ from eao_slam_torch.geometry.camera import Camera, TUM3
 
 
 class DemoFlag(enum.Enum):
-    """Ablation flags (mono_tum CLI contract). The port runs every flag but
-    FULL: NONE, the object-layer flags IFOREST, NA, IOU, NP and EAO, and
-    LINE_IFOREST (the object layer with line-alignment yaw)."""
+    """Ablation flags (mono_tum CLI contract): NONE, the object-layer flags
+    IFOREST, NA, IOU, NP and EAO, LINE_IFOREST (the object layer with
+    line-alignment yaw) and FULL (line mode online, then the offline dense
+    phase at shutdown)."""
 
     NONE = "None"
     IFOREST = "iForest"
@@ -99,6 +100,20 @@ class MappingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SemiDenseConfig:
+    """ProbabilityMapping parameters (include/ProbabilityMapping.h:45-56)."""
+
+    covis_n: int = 7
+    sigma_i: float = 20.0
+    lambda_g: float = 8.0
+    lambda_l: float = 80.0
+    lambda_theta: float = 45.0
+    lambda_n: float = 3
+    theta: float = 0.23
+    n_support: int = 7
+
+
+@dataclasses.dataclass(frozen=True)
 class CapacityConfig:
     max_keyframes: int = 256
     max_points: int = 16384
@@ -118,6 +133,7 @@ class SystemConfig:
     tracking: TrackingConfig = TrackingConfig()
     objects: ObjectConfig = ObjectConfig()
     mapping: MappingConfig = MappingConfig()
+    semidense: SemiDenseConfig = SemiDenseConfig()
     capacity: CapacityConfig = CapacityConfig()
     seed: int = 12345
 
@@ -133,13 +149,9 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
 
 def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
     """The port covers chunked tracking with its between-chunk passes
-    (object merge, maintenance, loop closing, relocalization), in geometry
-    mode, with the EAO object layer and with line-alignment yaw;
-    everything else names the ROADMAP.md item that will port it."""
-    if cfg.flag.semidense_enabled:
-        raise NotImplementedError(
-            f"DemoFlag.{cfg.flag.name} is not ported yet: its offline dense phase "
-            "(dense/semidense.py, lines3d.py, mesh.py) is ROADMAP.md Queue 1 item 12")
+    (object merge, maintenance, loop closing, relocalization) in every
+    mode, and FULL's offline dense phase; the interactive per-frame
+    tracker names the ROADMAP.md item that will port it."""
     if not chunked:
         raise NotImplementedError(
             "the interactive per-frame tracker (chunked=False) is not ported "

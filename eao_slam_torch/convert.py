@@ -9,7 +9,9 @@ geometry mode). The port's iForest generator crosses as its state array
 under "obj_rng"; the reference's ``jax.random`` key and its localization
 switch cannot seed or set anything here and are ignored on the way in. A
 LoopCloser's state crosses as a dict of its four attributes (signatures,
-consistency streaks, the last loop's order, the number of closed loops).
+consistency streaks, the last loop's order, the number of closed loops). A
+semi-dense result crosses as a dict of its five fields (pixels,
+inv_depth, sigma, valid, points_w).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from eao_slam_torch.config import SystemConfig
+from eao_slam_torch.dense.semidense import SemiDenseResult
 from eao_slam_torch.objects.state import ObjectTable
 from eao_slam_torch.runtime.loop_closing import LoopCloser
 from eao_slam_torch.runtime.map_state import MapState
@@ -111,3 +114,13 @@ def loop_closer_from_numpy(d: dict, cfg: SystemConfig) -> LoopCloser:
     lc.last_loop_order = int(d["last_loop_order"])
     lc.closed_loops = int(d["closed_loops"])
     return lc
+
+
+def semidense_result_from_numpy(d: dict, device) -> SemiDenseResult:
+    """A SemiDenseResult from its fields as arrays, e.g. a reference
+    result's ``_asdict()``."""
+    return SemiDenseResult(**{f: _to_tensor(f, d[f], device) for f in SemiDenseResult._fields})
+
+
+def semidense_result_to_numpy(r: SemiDenseResult) -> dict:
+    return {f: _to_numpy(f, getattr(r, f)) for f in SemiDenseResult._fields}

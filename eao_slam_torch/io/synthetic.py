@@ -355,6 +355,23 @@ def project_boxes(scene: Scene, cam, T_cw: np.ndarray, max_boxes: int, pad: floa
     return boxes, cls, score, valid
 
 
+def depth_cloud(scene: Scene, cam, T_cws, T_ref: np.ndarray, stride: int = 8) -> np.ndarray:
+    """Ground-truth cloud [M, 3] of the surfaces seen from poses T_cws
+    [K, 3, 4]: every ``stride``-th pixel of each view's ray-cast depth
+    (``render_image(..., return_depth=True)``) back-projected, in the camera
+    frame of T_ref (a SLAM map's frame is its first keyframe's camera)."""
+    v, u = np.mgrid[0:cam.height:stride, 0:cam.width:stride]
+    rays = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones(u.shape)], -1)
+    out = []
+    for T in T_cws:
+        z = render_image(scene, cam, T, return_depth=True)[1][::stride, ::stride]
+        hit = np.isfinite(z)
+        Xc = rays[hit] * z[hit][:, None]
+        Xw = (Xc - T[:3, 3]) @ T[:3, :3]
+        out.append(Xw @ T_ref[:3, :3].T + T_ref[:3, 3])
+    return np.concatenate(out)
+
+
 # ---------------------------------------------------------------------------
 # feature-level simulation
 # ---------------------------------------------------------------------------

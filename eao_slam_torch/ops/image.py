@@ -1,4 +1,4 @@
-"""Image-plane ops: the pyramid and Sobel gradients.
+"""Image-plane ops: the pyramid, Sobel gradients and the 3x3 maximum filter.
 
 Pyramid: antialiased bilinear downsampling as two weight matrices. The
 reference resizes with a triangle filter widened by 1/scale when
@@ -78,3 +78,15 @@ def sobel_gradients(img: torch.Tensor):
     gx = (s(-1, 1) + 2 * s(0, 1) + s(1, 1)) - (s(-1, -1) + 2 * s(0, -1) + s(1, -1))
     gy = (s(1, -1) + 2 * s(1, 0) + s(1, 1)) - (s(-1, -1) + 2 * s(-1, 0) + s(-1, 1))
     return gx, gy, torch.sqrt(gx * gx + gy * gy)
+
+
+def max_filter3(m: torch.Tensor) -> torch.Tensor:
+    """[H, W] -> the maximum over each pixel's 3x3 neighbourhood, zero
+    outside the image (the reference's padded slice maxima; exact)."""
+    H, W = m.shape
+    p = torch.nn.functional.pad(m, (1, 1, 1, 1))
+    out = m
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            out = torch.maximum(out, p[dy:dy + H, dx:dx + W])
+    return out

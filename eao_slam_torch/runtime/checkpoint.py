@@ -19,9 +19,11 @@ Where the port differs:
   dummy table in geometry mode, which the port ignores);
 - consistency-streak groups are written as Python ints: the reference
   writes the members as they are and ``json.dumps`` fails on numpy
-  integers (``ROADMAP.md`` Queue 3);
-- the retained keyframe images are not written or read: only the offline
-  semi-dense phase (ROADMAP.md Queue 1 item 12) uses them.
+  integers (``ROADMAP.md`` Queue 3).
+
+The retained keyframe images of FULL mode go in as the reference writes
+them: ``kf_image_slots`` (int32, sorted) and ``kf_images`` (float32 [n, H,
+W]), both absent when there are none.
 """
 
 from __future__ import annotations
@@ -39,11 +41,11 @@ from eao_slam_torch.runtime.scan_tracker import ChunkCarry
 CHUNKED_VERSION = 2
 
 
-def save_chunked_checkpoint(path: str, tracker) -> None:
+def save_chunked_checkpoint(path: str, tracker, kf_images: dict = None) -> None:
     """Serialize a ChunkedTracker mid-sequence: the carry (with the object
     table and the iForest RNG's state in the object-layer modes), the
-    trajectory records, the loop closer's state and the loop RNG's
-    state."""
+    trajectory records, the loop closer's state, the loop RNG's state and
+    the System's retained keyframe images (slot -> [H, W])."""
     c = tracker.carry
     if c is None:
         raise RuntimeError("nothing to checkpoint: the tracker is not armed")
@@ -55,6 +57,10 @@ def save_chunked_checkpoint(path: str, tracker) -> None:
         arrays["iforest_rng_state"] = obj_rng
     arrays.update({f"c_{k}": v for k, v in d.items()})
     arrays["loop_rng_state"] = tracker.loop_rng.get_state().numpy()
+    if kf_images:
+        arrays["kf_image_slots"] = np.asarray(sorted(kf_images), np.int32)
+        arrays["kf_images"] = np.stack([np.asarray(kf_images[s], np.float32)
+                                        for s in sorted(kf_images)])
     lc = tracker.loop_closer
     if lc is not None:
         arrays["lc_signatures"] = lc.signatures
@@ -146,3 +152,13 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
         lc.last_loop_order = meta["lc_last_loop_order"]
         lc.closed_loops = meta["lc_closed_loops"]
     return meta
+
+
+def load_kf_images(path: str) -> dict:
+    """The retained keyframe images of a chunked checkpoint (the port's or
+    the reference's): slot -> float32 [H, W], empty when it holds none."""
+    data = np.load(path, allow_pickle=False)
+    if "kf_image_slots" not in data:
+        return {}
+    images = data["kf_images"]
+    return {int(s): images[j] for j, s in enumerate(data["kf_image_slots"])}

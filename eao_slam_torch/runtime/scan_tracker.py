@@ -842,6 +842,20 @@ class ChunkedTracker:
         return self.carry.m if self.armed else self.inner.map
 
     @property
+    def kf_slots(self) -> list:
+        """Keyframe slots in insertion order: the bootstrap's, then
+        range(kf_count) once armed (the allocator is monotonic)."""
+        return list(range(self.kf_count_host)) if self.armed else list(self.inner.kf_slots)
+
+    @property
+    def kf_valid_host(self) -> np.ndarray:
+        return self.map.kf_valid.cpu().numpy()
+
+    @property
+    def kf_pt_host(self) -> np.ndarray:
+        return self.map.kf_pt_idx.cpu().numpy()
+
+    @property
     def obj_table(self) -> Optional[ObjectTable]:
         """The object landmark table (None in geometry mode or before the
         tracker is armed)."""

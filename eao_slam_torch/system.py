@@ -18,6 +18,14 @@ ground. ``save_keyframe_trajectory_tum``, ``save_frame_trajectory_tum`` and
 per ``track_monocular`` call. ``save_checkpoint`` / ``load_checkpoint``
 stop and resume a run.
 
+In FULL mode the images of keyframes are kept (keyed by keyframe slot,
+re-keyed through compactions), and ``shutdown()`` runs the offline dense
+phase over them as the reference's ProbabilityMapping thread does after
+tracking: semi-dense inverse depth against each keyframe's most covisible
+neighbours, 3D line segments, and a TSDF surface mesh;
+``save_semidense_obj``, ``save_lines_obj`` and ``save_mesh_obj`` write
+them.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -51,13 +59,17 @@ class System:
         self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device)
         self.tracker.compaction_listeners.append(self._on_compaction)
         self.device = self.tracker.device
-        # retained keyframe images, keyed by keyframe slot and remapped
-        # through compactions; only the offline semi-dense phase (ROADMAP.md
-        # Queue 1 item 12) fills it
+        # retained keyframe images (float32 [H, W]) for the offline dense
+        # phase, keyed by keyframe slot and remapped through compactions
         self._kf_images: dict = {}
         # chunk buffers (image path and feature path: one per System)
         self._img_buf: list = []     # (img u8, ts, boxes or None)
-        self._frame_buf: list = []   # (Frame, ts)
+        self._frame_buf: list = []   # (Frame, ts, img or None)
+        # the offline dense phase's products (shutdown)
+        self._semidense_result = None
+        self._semidense_slots: list = []
+        self._lines3d = None
+        self._mesh_tris = None
         self._groundtruth: Optional[GroundTruth] = None
         self.timings: list = []      # seconds per track_monocular call
 
@@ -81,7 +93,7 @@ class System:
                 T = self._flush_images()
         else:
             T = self.track_frame(frame_from_image(self.cfg, img, self.device, boxes=boxes),
-                                 timestamp)
+                                 timestamp, img=img)
         self.timings.append(time.perf_counter() - t0)
         return T
 
@@ -96,14 +108,16 @@ class System:
             raise TypeError(f"expected a GroundTruth or a path, got {type(gt_or_path)}")
         self._groundtruth = gt_or_path
 
-    def track_frame(self, frame: Frame, timestamp: float) -> Optional[np.ndarray]:
-        """Feed a pre-extracted Frame (``runtime.frame.frame_from_arrays``).
-        Returns T_cw [3, 4] as ``track_monocular`` does."""
+    def track_frame(self, frame: Frame, timestamp: float, img=None) -> Optional[np.ndarray]:
+        """Feed a pre-extracted Frame (``runtime.frame.frame_from_arrays``)
+        and, in FULL mode, optionally its image [H, W], kept if the frame
+        becomes a keyframe. Returns T_cw [3, 4] as ``track_monocular``
+        does."""
         frame = Frame(*(None if x is None else x.to(self.device) for x in frame))
         if self._armed:
             if self._img_buf:
                 raise RuntimeError("mixed track_frame / track_monocular")
-            self._frame_buf.append((frame, float(timestamp)))
+            self._frame_buf.append((frame, float(timestamp), img))
             if len(self._frame_buf) >= self.tracker.chunk:
                 return self._flush_frames()
             return None
@@ -111,7 +125,11 @@ class System:
         if self._groundtruth is not None:
             gt_pose = lookup_pose_matrix(self._groundtruth, timestamp)
         inner = self.tracker.inner
+        n_kf_before = len(inner.kf_slots)
         self.tracker.bootstrap(frame, float(timestamp), gt_pose=gt_pose)
+        if (img is not None and self.cfg.flag.semidense_enabled
+                and len(inner.kf_slots) > n_kf_before):
+            self._kf_images[inner.kf_slots[-1]] = np.asarray(img, np.float32)
         return np.asarray(inner.last_T) if inner.state == OK else None
 
     def _flush_images(self) -> Optional[np.ndarray]:
@@ -126,6 +144,7 @@ class System:
             kw = {k: np.stack([np.asarray(b[i]) for b in bx]) for i, k in
                   enumerate(("boxes", "box_class", "box_score", "box_valid"))}
         outs = self.tracker.track_images(imgs, ts, **kw)
+        self._retain_kf_images([b[0] for b in buf])
         n = len(buf)
         return np.asarray(outs.T[n - 1]) if int(outs.state[n - 1]) == OK else None
 
@@ -145,7 +164,17 @@ class System:
             act[:n] = True
             batch = batch._replace(active=torch.as_tensor(act))
         outs = self.tracker.track_batch(batch)
+        self._retain_kf_images([b[2] for b in buf])
         return np.asarray(outs.T[n - 1]) if int(outs.state[n - 1]) == OK else None
+
+    def _retain_kf_images(self, chunk_imgs: list) -> None:
+        """FULL mode: keep the image of every frame of the last chunk that
+        became a keyframe (None where the caller gave no image)."""
+        if not self.cfg.flag.semidense_enabled:
+            return
+        for i, slot in self.tracker.last_kf_slots:
+            if i < len(chunk_imgs) and chunk_imgs[i] is not None:
+                self._kf_images[slot] = np.asarray(chunk_imgs[i], np.float32)
 
     def _on_compaction(self, kf_remap: np.ndarray, pt_remap: np.ndarray):
         """Keyframe slots were compacted: re-key the retained images."""
@@ -223,30 +252,155 @@ class System:
 
     def save_checkpoint(self, path: str) -> None:
         """Serialize the tracker mid-sequence (pending buffers flush first):
-        carry, trajectory records, loop-closer state, loop RNG."""
+        carry, trajectory records, loop-closer state, loop RNG, and the
+        retained keyframe images."""
         from eao_slam_torch.runtime.checkpoint import save_chunked_checkpoint
 
         self.flush()
-        save_chunked_checkpoint(path, self.tracker)
+        save_chunked_checkpoint(path, self.tracker, kf_images=self._kf_images)
 
     def load_checkpoint(self, path: str) -> dict:
         """Restore a checkpoint into this System (same capacities); tracking
-        resumes where the save left off. Returns the file's meta dict."""
-        from eao_slam_torch.runtime.checkpoint import load_chunked_checkpoint
+        resumes where the save left off, with the keyframe images the file
+        holds. Returns the file's meta dict."""
+        from eao_slam_torch.runtime.checkpoint import load_chunked_checkpoint, load_kf_images
 
         meta = load_chunked_checkpoint(path, self.tracker)
+        self._kf_images = load_kf_images(path)
         self._img_buf = []
         self._frame_buf = []
         return meta
 
-    def shutdown(self, semidense: bool = False):
-        """Flush the tail chunk. The offline semi-dense phase is ROADMAP.md
-        Queue 1 item 12."""
-        if semidense:
-            raise NotImplementedError(
-                "the offline semi-dense phase is not ported yet: ROADMAP.md "
-                "Queue 1 item 12")
+    def shutdown(self, semidense: bool = True):
+        """Flush the tail chunk; then, in FULL mode with at least 4 retained
+        keyframe images, the offline dense phase: semi-dense depth, 3D line
+        segments and the surface mesh. Returns the SemiDenseResult (None
+        when the phase did not run)."""
         self.flush()
+        if semidense and self.cfg.flag.semidense_enabled and len(self._kf_images) >= 4:
+            self._semidense_result = self._run_semidense()
+            if self._semidense_result is not None:
+                self._run_lines3d()
+                self._run_mesh()
+        return self._semidense_result
+
+    def semidense_inputs(self):
+        """What the semi-dense pass reads: (slots, images [K, H, W], poses
+        [K, 3, 4], depth ranges [K, 2], neighbours) over the valid keyframes
+        with a retained image, in slot order; None for fewer than 4. Each
+        keyframe's depth range is the mean +- 2 sigma of its tracked map
+        points' depths (StereoSearchConstraints,
+        src/ProbabilityMapping.cc:734-747), (0.3, 10) with fewer than 5."""
+        tr = self.tracker
+        kf_valid = tr.kf_valid_host
+        slots = [s for s in tr.kf_slots if s in self._kf_images and kf_valid[s]]
+        if len(slots) < 4:
+            return None
+        imgs = np.stack([self._kf_images[s] for s in slots])
+        poses = tr.map.kf_pose.cpu().numpy()[slots]
+        kf_pt = tr.kf_pt_host
+        pts = tr.map.pt_pos.cpu().numpy()
+        ranges = []
+        for i, s in enumerate(slots):
+            ids = kf_pt[s]
+            X = pts[ids[ids >= 0]]
+            z = X @ poses[i][:3, :3][2] + poses[i][2, 3]
+            z = z[z > 0.05]
+            if len(z) < 5:
+                ranges.append((0.3, 10.0))
+            else:
+                mu, sd = float(z.mean()), float(z.std())
+                ranges.append((max(mu - 2 * sd, 0.1), mu + 2 * sd))
+        return (slots, imgs, poses, np.asarray(ranges, np.float32),
+                self._semidense_neighbors(slots))
+
+    def _run_semidense(self):
+        from eao_slam_torch.dense.semidense import semidense_reconstruct
+
+        inputs = self.semidense_inputs()
+        if inputs is None:
+            return None
+        slots, imgs, poses, ranges, neighbors = inputs
+        self._semidense_slots = slots
+        return semidense_reconstruct(self.cfg.camera, imgs, poses, ranges, neighbors,
+                                     self.cfg.semidense, device=self.device)
+
+    def _semidense_neighbors(self, slots: list) -> list:
+        """Each keyframe's sweep neighbours: its ``covis_n`` most covisible
+        peers with a weight of at least 5 (covisN, include/ProbabilityMapping.h:45),
+        from one covisibility product copied to the host once; the +-3
+        temporal window where fewer than 2 qualify."""
+        from eao_slam_torch.runtime.compaction import covisibility
+
+        m = self.tracker.map
+        covis = covisibility(m.kf_pt_idx, m.kf_kp_valid, m.kf_valid,
+                             m.pt_pos.shape[0]).cpu().numpy()
+        idx_of = {s: i for i, s in enumerate(slots)}
+        neighbors = []
+        for i, s in enumerate(slots):
+            w = covis[s]
+            order = np.argsort(-w)      # the reference's sort, ties included
+            nb = [idx_of[int(t)] for t in order
+                  if int(t) in idx_of and int(t) != s and w[t] >= 5][:self.cfg.semidense.covis_n]
+            if len(nb) < 2:
+                nb = [j for j in range(max(0, i - 3), min(len(slots), i + 4)) if j != i][:6]
+            neighbors.append(nb)
+        return neighbors
+
+    def _run_lines3d(self):
+        """2D segments of every retained keyframe in one batched detector
+        call, each keyframe's 3D fit, then the multi-view clustering
+        (LineDetector + the Line3D++ offline pass)."""
+        from eao_slam_torch.dense.lines3d import cluster_world_segments, fit_3d_segments
+        from eao_slam_torch.ops.lines import detect_segments
+
+        res = self._semidense_result
+        slots = self._semidense_slots
+        cam = self.cfg.camera
+        imgs = torch.as_tensor(np.stack([self._kf_images[s] for s in slots]), device=self.device)
+        segs2d, sv = detect_segments(imgs)
+        poses = self.tracker.map.kf_pose[torch.as_tensor(slots, device=self.device)]
+        fits = [fit_3d_segments(cam, segs2d[i], sv[i], res.pixels[i], res.inv_depth[i],
+                                res.valid[i], poses[i], height=cam.height, width=cam.width)
+                for i in range(len(slots))]
+        seg = torch.cat([f.seg for f in fits]).cpu().numpy()
+        val = torch.cat([f.valid for f in fits]).cpu().numpy()
+        self._lines3d = cluster_world_segments(seg, val, min_views=2, device=self.device)
+        return self._lines3d
+
+    def _run_mesh(self):
+        from eao_slam_torch.dense.mesh import extract_mesh
+
+        cam = self.cfg.camera
+        poses = self.tracker.map.kf_pose.cpu().numpy()[self._semidense_slots]
+        self._mesh_tris, _ = extract_mesh(cam, self._semidense_result, poses, cam.height,
+                                          cam.width)
+        return self._mesh_tris
+
+    def save_semidense_obj(self, path: str) -> int:
+        """The semi-dense cloud (``dense.semidense.save_obj``); 0 before the
+        dense phase ran."""
+        from eao_slam_torch.dense.semidense import save_obj
+
+        if self._semidense_result is None:
+            return 0
+        return save_obj(path, self._semidense_result)
+
+    def save_lines_obj(self, path: str) -> int:
+        """The clustered 3D line segments as .obj lines; 0 when none."""
+        from eao_slam_torch.dense.lines3d import save_lines_obj
+
+        if self._lines3d is None or len(self._lines3d) == 0:
+            return 0
+        return save_lines_obj(path, self._lines3d)
+
+    def save_mesh_obj(self, path: str) -> int:
+        """The surface mesh as an .obj triangle soup; 0 when none."""
+        from eao_slam_torch.dense.mesh import save_mesh_obj
+
+        if self._mesh_tris is None or len(self._mesh_tris) == 0:
+            return 0
+        return save_mesh_obj(path, self._mesh_tris)
 
     def frame_trajectory(self):
         """(timestamps [N], T_cw [N, 3, 4]) of every tracked frame."""

@@ -1,6 +1,7 @@
 """Where one chunk's time goes in the port's main path, on one NVIDIA GPU.
 
     python3 profile_port.py [--flags None EAO LineAndiForest]
+    python3 profile_port.py --flags Full --dense
 
 Same configuration and arc as chip_smoke.py (geometry mode, 640x480, 1024
 features, chunk 32, bench capacities, default seed); ``--flags`` names the
@@ -19,6 +20,14 @@ more chunk with
 times), its idle share of the chunk's wall time, the kernels that take the
 most device time, and the host-device synchronisations. Prints the card's
 name and power limit, then one JSON line per mode.
+
+``--dense`` profiles FULL's offline dense phase alone instead: chip_smoke.py's
+dense protocol (FULL over the first 8 + 2 x 32 frames of the arc), then the
+host-clock time of each stage between synchronises
+(``chip_smoke.dense_stage_times``), then one traced ``System.shutdown``: its
+wall time, the device's busy time and idle share, kernel launches, stream
+synchronisations, copies, and the operations that take the most device
+time.
 """
 
 from __future__ import annotations
@@ -80,9 +89,13 @@ def front_end_split(cfg, imgs, reps: int = 5) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--flags", nargs="+", choices=("None", "EAO", "LineAndiForest"),
+    p.add_argument("--flags", nargs="+", choices=("None", "EAO", "LineAndiForest", "Full"),
                    default=["None"])
+    p.add_argument("--dense", action="store_true",
+                   help="profile FULL's offline dense phase (with --flags Full)")
     args = p.parse_args()
+    if ("Full" in args.flags) != args.dense:
+        p.error("FULL is profiled through its dense phase: --flags Full --dense")
     import torch
 
     if not torch.cuda.is_available():
@@ -94,8 +107,62 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card)
     for flag in args.flags:
-        print(json.dumps(profile_mode(flag, ts, gt, images, card)), flush=True)
+        prof = profile_dense if flag == "Full" else profile_mode
+        print(json.dumps(prof(flag, ts, gt, images, card)), flush=True)
     return 0
+
+
+def trace_summary(prof, wall_ms: float) -> dict:
+    """Device busy time, idle share, launches, synchronisations, copies and
+    the top device operations of one torch.profiler trace."""
+    events = prof.key_averages()
+    dev = [e for e in events if getattr(e, "device_type", None) is not None
+           and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize",
+                                                     "cudaDeviceSynchronize"))
+    copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
+                                                        "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_launches": launches, "stream_syncs": syncs, "memcpy_calls": copies,
+            "top_kernels_ms": [{"name": e.key[:90], "count": e.count,
+                                "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def profile_dense(flag: str, ts, gt, images, card: str) -> dict:
+    """FULL's offline dense phase alone (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from eao_slam_torch.system import System
+
+    boxes = chip_smoke.bench_boxes(gt)
+    sysm = System(chip_smoke.full_config(), chunk=chip_smoke.CHUNK)
+    for k in range(chip_smoke.DENSE_FRAMES):
+        sysm.track_monocular(images[k], float(ts[k]), boxes=boxes[k])
+    sysm.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysm.shutdown(semidense=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    stages = chip_smoke.dense_stage_times(sysm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sysm.shutdown(semidense=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n_kf = len(sysm._semidense_slots)
+    return {"card": card, "flag": flag, "keyframes": n_kf, "first_call_s": first_s,
+            "s_per_kf": first_s / n_kf, "stages_s": stages,
+            "traced_shutdown": trace_summary(prof, wall_ms),
+            "counts": {"semidense_valid": int(sysm._semidense_result.valid.sum()),
+                       "segments": len(sysm._lines3d), "triangles": len(sysm._mesh_tris)}}
 
 
 def profile_mode(flag: str, ts, gt, images, card: str) -> dict:
@@ -158,28 +225,12 @@ def profile_mode(flag: str, ts, gt, images, card: str) -> dict:
         tracker.carry, outs = tracker._extract_track(tracker.carry, imgs, tss, None, box_t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    dev = [e for e in events if getattr(e, "device_type", None) is not None
-           and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize",
-                                                     "cudaDeviceSynchronize"))
-    copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
-                                                        "cuLaunchKernel", "cudaLaunchKernelExC"))
     return {
         "card": card, "flag": flag,
         "stages_ms": stages_ms,
         "front_end_ms": front_end_ms,
-        "traced_chunk": {
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "kernel_launches": launches, "stream_syncs": syncs, "memcpy_calls": copies,
-            "keyframes_in_chunk": int(outs.is_kf.sum()),
-            "top_kernels_ms": [{"name": e.key[:90], "count": e.count,
-                                "ms": e.self_device_time_total / 1e3} for e in top],
-        },
+        "traced_chunk": {**trace_summary(prof, wall_ms),
+                         "keyframes_in_chunk": int(outs.is_kf.sum())},
     }
 
 

@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python reference_ate_spread.py --flag LineAndiForest --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --flag LineAndiForest --ground --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --replay-yaw DIR/yaw_calls_seed5.npz ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --dense
 
 Runs the reference package (eao_slam_tpu) as bench.py's headline mode
 does (``--flag None``, the default) or its EAO mode (``--flag EAO``, or
@@ -50,6 +51,21 @@ line a file: the calls whose counts or lines in box differ from the port's
 the calls whose elected yaws differ by more than 1e-6 rad, and, for each
 object valid at the last call, the yaw the port and the reference elect
 there, its votes by yaw sample and the mean score of each voted sample.
+``--dense`` runs bench.py's dense protocol (``_semidense_numbers``) once:
+DemoFlag.FULL over the first DENSE_FRAMES frames of the arc (8 + 2 x 32)
+at the line phase's capacities, each frame through ``frame_from_image``
+and ``System.track_frame(..., img=)`` (the keyframe images are kept), then
+``System.shutdown(semidense=True)``; it prints the keyframes, the seconds
+on the host clock, the valid semi-dense points, the 3D segments, the
+triangles, and the cloud's quality: the semi-dense export against the
+ray-cast depth of the retained keyframes at their true poses (every 8th
+pixel, ``eao_slam_torch.io.synthetic.depth_cloud``), in the camera frame
+of the map's first keyframe, by the reference's
+``evaluation.evaluate_reconstruction`` as it is, and by its scaled ICP
+started from the sim3 of the keyframe centres onto their true centres
+(the mean distance, which far outliers dominate, and the median).
+chip_smoke.py prints these figures beside the port's (about 10 minutes
+and 4 GB on the CPU).
 
 This is the yardstick that chip_smoke.py's ATE gate is derived from: the
 tracker is chaotic (float noise in one triangulation changes later
@@ -67,6 +83,7 @@ CHUNK = 32
 N_TIMED = 4
 N_FRAMES = 8 + CHUNK * (1 + N_TIMED)
 N_BOXES = 8
+DENSE_FRAMES = 8 + 2 * CHUNK
 
 
 def warmup_frames(n_boot: int) -> int:
@@ -260,6 +277,65 @@ def replay_yaw(path: str) -> dict:
     return out
 
 
+def dense_run(scene, images, ts, gt, boxes) -> dict:
+    """bench.py's dense protocol through the reference's System (see the
+    module docstring)."""
+    import os
+    import tempfile
+    import time
+
+    from eao_slam_tpu.config import CapacityConfig, DemoFlag, tum3_config
+    from eao_slam_tpu.evaluation import (
+        evaluate_reconstruction, icp_register, load_cloud, mean_cloud_distance,
+        random_downsample)
+    from eao_slam_tpu.geometry.camera import TUM3
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.system import System
+    from eao_slam_torch.io.synthetic import depth_cloud
+    from eao_slam_torch.io.trajectory import umeyama_alignment
+
+    cap = CapacityConfig(max_keyframes=128, max_points=8192, max_features=1024,
+                         local_ba_points=2048, max_boxes=N_BOXES, max_objects=32)
+    cfg = tum3_config(DemoFlag.FULL).replace(capacity=cap)
+    sysm = System(cfg, chunk=CHUNK)
+    for k in range(DENSE_FRAMES):
+        kw = dict(zip(("boxes", "box_class", "box_score", "box_valid"), (b[k] for b in boxes)))
+        sysm.track_frame(frame_from_image(cfg, images[k].astype(np.float32), **kw),
+                         float(ts[k]), img=images[k])
+    sysm.flush()
+    t0 = time.perf_counter()
+    res = sysm.shutdown(semidense=True)
+    dt = time.perf_counter() - t0
+    slots = sysm._semidense_slots
+    kf_ts = np.asarray(sysm.tracker.map.kf_timestamp)
+    kf_valid = np.asarray(sysm.tracker.map.kf_valid)
+    first = int(np.flatnonzero(kf_valid)[np.argmin(kf_ts[kf_valid])])
+    frame = [int(np.argmin(np.abs(ts - kf_ts[s]))) for s in slots]
+    out = {"keyframes": len(slots), "seconds": dt, "s_per_kf": dt / len(slots),
+           "semidense_valid": int(np.asarray(res.valid).sum()),
+           "segments": int(len(sysm._lines3d)), "triangles": int(len(sysm._mesh_tris))}
+    T_ref = gt[int(np.argmin(np.abs(ts - kf_ts[first])))]
+    with tempfile.TemporaryDirectory() as d:
+        est_path, gt_path = os.path.join(d, "semidense.obj"), os.path.join(d, "truth.xyz")
+        out["exported_points"] = sysm.save_semidense_obj(est_path)
+        np.savetxt(gt_path, depth_cloud(scene, TUM3, gt[frame], T_ref))
+        out["evaluate_reconstruction"] = evaluate_reconstruction(est_path, gt_path)
+        est, truth = load_cloud(est_path), load_cloud(gt_path)
+    # the same scaled ICP started from the sim3 of the keyframe centres onto
+    # their true centres (chip_smoke.cloud_quality)
+    true_c = centers(gt[frame]) @ T_ref[:3, :3].T + T_ref[:3, 3]
+    init = umeyama_alignment(centers(np.asarray(sysm.tracker.map.kf_pose)[slots]), true_c)
+    s_, R_, t_ = icp_register(random_downsample(est, 0.1, seed=1),
+                              random_downsample(truth, 0.1, seed=2), init=init)
+    from eao_slam_tpu.evaluation import nearest_neighbors
+
+    _, dist = nearest_neighbors((s_ * (R_ @ est.T)).T + t_, truth)
+    out["trajectory_init"] = {"scale": float(s_), "mean_distance": mean_cloud_distance(
+        est, truth, (s_, R_, t_)), "median_distance": float(np.median(dist)),
+        "init_mean_distance": mean_cloud_distance(est, truth, init)}
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[12345, 1, 2, 3, 4, 5, 6])
@@ -269,6 +345,8 @@ def main() -> None:
                    help="chip_smoke.py's tilted ground-alignment run instead of the arc")
     p.add_argument("--replay-yaw", nargs="+", metavar="FILE",
                    help="the reference's yaw functions on yaw calls recorded from the port")
+    p.add_argument("--dense", action="store_true",
+                   help="bench.py's dense protocol in FULL mode, with the cloud's quality")
     args = p.parse_args()
 
     import jax
@@ -287,6 +365,12 @@ def main() -> None:
     if args.ground:
         for seed in args.seeds:
             print(json.dumps(ground_run(seed, scene, ts, gt, args.flag)), flush=True)
+        return
+    if args.dense:
+        images = np.stack([render_image(scene, TUM3, T) for T in gt[:DENSE_FRAMES]])
+        boxes = [np.stack([np.asarray(project_boxes(scene, TUM3, T, N_BOXES)[k])
+                           for T in gt[:DENSE_FRAMES]]) for k in range(4)]
+        print(json.dumps(dense_run(scene, images, ts, gt, boxes)), flush=True)
         return
     images = np.stack([render_image(scene, TUM3, T) for T in gt])
     boxes = None

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, the card by default,
 the default configuration builds, the object-layer flags construct (with
-and without line-alignment yaw), and the unported modes refuse loudly."""
+and without line-alignment yaw, and FULL with its offline dense phase),
+and the unported interactive tracker refuses loudly."""
 
 import subprocess
 import sys
@@ -27,7 +28,9 @@ def test_port_imports_no_jax():
         "'eao_slam_torch.objects.iforest', 'eao_slam_torch.objects.stats', "
         "'eao_slam_torch.objects.boxes', 'eao_slam_torch.objects.state', "
         "'eao_slam_torch.objects.yaw', 'eao_slam_torch.ops.lines', "
-        "'eao_slam_torch.io.trajectory'}\n"
+        "'eao_slam_torch.io.trajectory', 'eao_slam_torch.dense.semidense', "
+        "'eao_slam_torch.dense.lines3d', 'eao_slam_torch.dense.mesh', "
+        "'eao_slam_torch.evaluation'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -73,26 +76,24 @@ def test_default_configuration_builds():
 
 @pytest.mark.parametrize("case", ["LineAndiForest", "Full", "per_frame"])
 def test_unported_modes_raise(case):
-    """FULL needs its offline dense phase (item 12) and the interactive
-    tracker is item 13; LineAndiForest, ported, no longer refuses, and
-    FULL's refusal no longer names the line layer (item 10)."""
+    """The interactive tracker (chunked=False) is item 13 and refuses, in
+    FULL mode too; LineAndiForest and FULL (item 12, its offline dense
+    phase ported) construct the chunked path."""
     from eao_slam_torch.config import check_supported
     from eao_slam_torch.system import System
 
     if case == "per_frame":
-        with pytest.raises(NotImplementedError, match="item 13"):
-            System(_cfg(), chunked=False, device="cpu")
-    elif case == "Full":
-        for build in (lambda: System(_cfg(flag=DemoFlag(case)), device="cpu"),
-                      lambda: System(flag=case, device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 12") as err:
-                build()
-            assert "item 10" not in str(err.value)
+        for flag in (DemoFlag.NONE, DemoFlag.FULL):
+            with pytest.raises(NotImplementedError, match="item 13") as err:
+                System(_cfg(flag=flag), chunked=False, device="cpu")
+            assert "item 12" not in str(err.value)
     else:
         check_supported(_cfg(flag=DemoFlag(case)))
         for sysm in (System(_cfg(flag=DemoFlag(case)), device="cpu"),
                      System(flag=case, device="cpu")):
-            assert sysm.cfg.flag.use_yaw_lines and not sysm.cfg.flag.semidense_enabled
+            assert sysm.cfg.flag.use_yaw_lines
+            assert sysm.cfg.flag.semidense_enabled == (case == "Full")
+            assert sysm.shutdown() is None         # nothing tracked: no dense phase
 
 
 @pytest.mark.parametrize("flag", ["EAO", "iForest", "NA", "IoU", "NP"])
@@ -132,7 +133,7 @@ def test_config_matches_reference_fields_and_defaults():
     from eao_slam_tpu import config as jc
 
     for name in ("OrbConfig", "MatcherConfig", "TrackingConfig", "ObjectConfig",
-                 "MappingConfig", "CapacityConfig"):
+                 "MappingConfig", "SemiDenseConfig", "CapacityConfig"):
         ours = {f.name: f.default for f in dataclasses.fields(getattr(tc, name))}
         ref = {f.name: f.default for f in dataclasses.fields(getattr(jc, name))}
         for field, default in ours.items():
