@@ -1,7 +1,8 @@
 """Configuration of the port: the same frozen dataclasses as the reference
-package's config, limited to the fields chunked tracking (geometry mode,
-the EAO object layer, line-alignment yaw) and the offline dense phase
-read, with the reference's names and defaults.
+package's config, limited to the fields the two trackers (chunked and
+interactive per-frame: geometry mode, the EAO object layer, line-alignment
+yaw, vocabulary place recognition) and the offline dense phase read, with
+the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -82,12 +83,17 @@ class TrackingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObjectConfig:
-    """EAO object-layer parameters the chunked path reads (src/Object.cc
+    """EAO object-layer parameters the trackers read (src/Object.cc
     constants)."""
 
     proj_iou_threshold: float = 0.25      # projected-box stage (src/Object.cc:351)
     iforest_seed: int = 12345             # :1214
     min_points_per_object: int = 5
+    use_cubeslam: bool = False            # single-view cuboid proposals, off by
+                                          # default like bCubeslam (src/Tracking.cc:1211)
+    per_frame_iforest: bool = False       # chunked path: the iForest cull after every
+                                          # frame (the reference's pacing,
+                                          # src/Object.cc:1202-1309) instead of once a chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +142,12 @@ class SystemConfig:
     semidense: SemiDenseConfig = SemiDenseConfig()
     capacity: CapacityConfig = CapacityConfig()
     seed: int = 12345
+    # BoW vocabulary (ops/bow.py) of the interactive tracker: a trained
+    # .npz or DBoW2 .txt file, or None to train a small one online from the
+    # first keyframes (the reference loads ORBvoc.bin, src/System.cc:79)
+    vocab_path: str | None = None
+    bow_bootstrap_kfs: int = 5        # keyframes before the online training
+    use_bow: bool = True              # place recognition through the vocabulary
 
     def replace(self, **kw) -> "SystemConfig":
         return dataclasses.replace(self, **kw)
@@ -145,14 +157,3 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
     if isinstance(flag, str):
         flag = DemoFlag(flag)
     return SystemConfig(camera=TUM3, flag=flag, **kw)
-
-
-def check_supported(cfg: SystemConfig, chunked: bool = True) -> None:
-    """The port covers chunked tracking with its between-chunk passes
-    (object merge, maintenance, loop closing, relocalization) in every
-    mode, and FULL's offline dense phase; the interactive per-frame
-    tracker names the ROADMAP.md item that will port it."""
-    if not chunked:
-        raise NotImplementedError(
-            "the interactive per-frame tracker (chunked=False) is not ported "
-            "yet: ROADMAP.md Queue 1 item 13")

@@ -10,9 +10,13 @@ new-object creation and the iForest outlier cull (src/Object.cc:1202-1309).
 
 As in the reference package: every (detection, object) score is computed
 at once as [B, J] tensors (``compute_detection_stats``), the cascade
-resolves over them (``objects/resolve.py``), and ``apply_frame_update``
-applies all updates batched. Targets of one frame are disjoint (the
-resolver guarantees it), so the table's float sums are order-free.
+resolves over them, and ``apply_frame_update`` applies all updates
+batched. Targets of one frame are disjoint (the resolver guarantees it),
+so the table's float sums are order-free. Both trackers resolve on the
+device (``objects/resolve.py``), where the reference's interactive
+``ObjectUpdater`` replays the cascade on the host: its tests show the two
+resolvers equal. The interactive tracker's ``ObjectUpdater`` runs the
+iForest cull per frame.
 
 Trouble spots, handled as in the reference:
 - member and detection subsamples rank ``1 + h`` with a hash of only 997
@@ -34,7 +38,8 @@ from eao_slam_torch.geometry import se3
 from eao_slam_torch.geometry.camera import Camera, project
 from eao_slam_torch.objects import boxes as boxops
 from eao_slam_torch.objects import stats
-from eao_slam_torch.objects.iforest import IForestDraws, anomaly_scores
+from eao_slam_torch.config import SystemConfig
+from eao_slam_torch.objects.iforest import IForestDraws, anomaly_scores, draw_iforest, psi_depth_for
 from eao_slam_torch.objects.state import ObjectTable, yaw_rotation
 from eao_slam_torch.runtime.map_state import MapState
 from eao_slam_torch.runtime.tracking_kernels import scatter_max, set_last_wins, set_rows_drop
@@ -382,3 +387,64 @@ def chunk_iforest_cull(cam: Camera, m: MapState, table: ObjectTable, T_cw, since
                            r_max=r_max, proj_rect=proj_rect,
                            bad=table.bad | (table.valid & ~has_mem))
     return m, table
+
+
+class ObjectUpdater:
+    """The interactive tracker's per-frame object pipeline (the object work
+    of TrackWithMotionModel, src/Tracking.cc:1246-1647): detection
+    statistics and the cascade on the device, the batched table
+    update with the per-frame iForest cull, and in line mode the yaw vote.
+    The iForest draws come from ``draw(mask)``: a host generator seeded
+    from ``cfg.objects.iforest_seed``; tests replace it."""
+
+    def __init__(self, cfg: SystemConfig):
+        self.cfg = cfg
+        self.cam = cfg.camera
+        self.t_table_np = stats.make_t_table()
+        self.t_table = {}   # the critical values per device
+        self.psi, self.depth = psi_depth_for(N_OBJ_SAMPLE)
+        self.generator = torch.Generator().manual_seed(cfg.objects.iforest_seed)
+
+    def draw(self, mask: torch.Tensor) -> IForestDraws:
+        return draw_iforest(self.generator, mask, self.psi, self.depth)
+
+    def frame_update(self, m: MapState, table: ObjectTable, frame_boxes, T_cw, kp, cur_pt,
+                     frame_id: int, lines=None):
+        """One frame: ``frame_boxes`` = (boxes [B, 4], class [B], score
+        [B], valid [B]), T_cw [3, 4], the frame's keypoints and map point
+        per feature, ``lines`` = ([L, 4], [L]) for the yaw vote. Returns
+        (map_state, table, appear_new_object)."""
+        bxs, cls, score, bvalid = frame_boxes
+        dev = m.pt_pos.device
+        T = torch.as_tensor(T_cw, dtype=torch.float32, device=dev)
+        det = compute_detection_stats(self.cam, m.pt_pos, m.pt_valid, m.pt_object_id, table, T,
+                                      kp, cur_pt, bxs, cls, score, bvalid, frame_id)
+        res = self.resolve(det, table, bxs)
+        m2, table2 = apply_frame_update(self.cam, m, table, det, res.assoc, res.new_slots, bxs,
+                                        cls, T, kp, cur_pt, frame_id, draw=self.draw,
+                                        depth=self.depth, run_iforest=True)
+        table2 = table2._replace(re_obj=table2.re_obj + res.re_inc)
+        if self.cfg.flag.use_yaw_lines and lines is not None and lines[0] is not None:
+            from eao_slam_torch.objects.yaw import update_yaw, yaw_sample_scores
+
+            targets = torch.where(res.assoc >= 0, res.assoc, res.new_slots)
+            counts, errs, n_lines = yaw_sample_scores(self.cam, table2, targets, bxs, T, *lines)
+            table2 = update_yaw(table2, targets, counts, errs, n_lines)
+        return m2, table2, bool((res.new_slots >= 0).any())
+
+    def resolve(self, det: FrameDetections, table: ObjectTable, bxs):
+        """The cascade over the score matrices (the reference updater's host
+        ``_resolve`` and ``_allocate_slots``), as the chunked tracker runs
+        it: ``resolve_cascade`` on the detections' device. Returns its
+        ``ResolveResult`` (assoc, new_slots, re_inc)."""
+        from eao_slam_torch.objects.resolve import resolve_cascade
+
+        dev = bxs.device
+        if dev not in self.t_table:
+            self.t_table[dev] = torch.as_tensor(self.t_table_np, device=dev)
+        flag = self.cfg.flag
+        return resolve_cascade(
+            det, table, self.t_table[dev], bxs, self.cfg.objects.proj_iou_threshold,
+            use_iou=flag.use_iou, use_nonparam=flag.use_nonparam, use_ttest=flag.use_ttest,
+            img_w=int(self.cam.width), img_h=int(self.cam.height),
+            min_points=self.cfg.objects.min_points_per_object)

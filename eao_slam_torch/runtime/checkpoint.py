@@ -1,6 +1,12 @@
-"""Checkpoint and resume of the chunked tracker.
+"""Checkpoint and resume of both trackers.
 
-The file is the reference package's chunked checkpoint format (version 2,
+The interactive MonoTracker's map checkpoint is the reference package's
+version 1 (``save_checkpoint`` / ``load_checkpoint``): the MapState as
+``map_*``, the object table as ``obj_*``, the host mirrors, and a JSON blob
+``meta`` of the keyframe order and counters; a restored tracker resumes
+LOST and relocalizes into the map.
+
+The chunked checkpoint is the reference package's format (version 2,
 ``np.savez_compressed``): the whole ChunkCarry as ``m_*`` (map) and ``c_*``
 (carry) arrays, the loop closer's signatures as ``lc_signatures``, and a
 JSON blob of host state under ``chunked_meta``. A file the reference wrote
@@ -35,10 +41,66 @@ import warnings
 import numpy as np
 import torch
 
-from eao_slam_torch.convert import carry_from_numpy, carry_to_numpy
+from eao_slam_torch.convert import (carry_from_numpy, carry_to_numpy, map_state_from_numpy,
+                                    map_state_to_numpy, object_table_from_numpy,
+                                    object_table_to_numpy)
+from eao_slam_torch.runtime.loop_closing import kf_signatures
+from eao_slam_torch.runtime.map_state import MapState
 from eao_slam_torch.runtime.scan_tracker import ChunkCarry
+from eao_slam_torch.runtime.tracker import LOST
 
+FORMAT_VERSION = 1
 CHUNKED_VERSION = 2
+
+
+def save_checkpoint(path: str, tracker) -> None:
+    """Serialize a MonoTracker's map, object table and host mirrors."""
+    arrays = {f"map_{k}": v for k, v in map_state_to_numpy(tracker.map).items()}
+    if tracker.obj_table is not None:
+        arrays.update({f"obj_{k}": v for k, v in object_table_to_numpy(tracker.obj_table).items()})
+    for name in ("kf_pt_host", "kf_valid_host", "pt_valid_host", "pt_first_kf_host"):
+        arrays[name] = getattr(tracker, name)
+    meta = {"version": FORMAT_VERSION, "kf_slots": [int(s) for s in tracker.kf_slots],
+            "frame_id": int(tracker.frame_id), "n_points": int(tracker.n_points),
+            "state": int(tracker.state), "flag": tracker.cfg.flag.value}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, meta=json.dumps(meta), **arrays)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, tracker) -> dict:
+    """Restore a MonoTracker checkpoint (the port's or the reference's)
+    into a tracker of the same capacities. The tracker resumes LOST, with
+    the last keyframe's pose, and relocalizes into the restored map; the
+    loop closer's signatures are recomputed. Returns the meta dict."""
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(str(data["meta"]))
+    if meta["version"] != FORMAT_VERSION:
+        raise ValueError(f"checkpoint version {meta['version']} unsupported")
+    m = {k: data[f"map_{k}"] for k in MapState._fields}
+    for k, a in m.items():
+        if tuple(a.shape) != tuple(getattr(tracker.map, k).shape):
+            raise ValueError(f"checkpoint field {k} shape {a.shape} != capacity "
+                             f"{tuple(getattr(tracker.map, k).shape)}")
+    tracker.map = map_state_from_numpy(m, tracker.device)
+    if tracker.obj_table is not None and "obj_valid" in data:
+        tracker.obj_table = object_table_from_numpy(
+            {k[4:]: data[k] for k in data.files if k.startswith("obj_")}, tracker.device)
+    for name in ("kf_pt_host", "kf_valid_host", "pt_valid_host", "pt_first_kf_host"):
+        setattr(tracker, name, data[name].copy())
+    tracker.kf_slots = [int(s) for s in meta["kf_slots"]]
+    tracker.frame_id = meta["frame_id"]
+    tracker.n_points = meta["n_points"]
+    tracker.state = LOST                    # relocalize into the map
+    tracker.velocity = None
+    tracker.last_T = (tracker.map.kf_pose[tracker.kf_slots[-1]].cpu().numpy()
+                      if tracker.kf_slots else None)
+    if tracker.loop_closer is not None and tracker.kf_slots:
+        st = torch.as_tensor(tracker.kf_slots, device=tracker.device)
+        tracker.loop_closer.signatures[tracker.kf_slots] = kf_signatures(
+            tracker.map.kf_desc[st], tracker.map.kf_kp_valid[st]).cpu().numpy()
+    return meta
 
 
 def save_chunked_checkpoint(path: str, tracker, kf_images: dict = None) -> None:
@@ -101,10 +163,6 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
         raise ValueError(f"chunked checkpoint v{meta['version']} unsupported")
     if meta["flag"] != tracker.cfg.flag.value:
         raise ValueError(f"checkpoint flag {meta['flag']} != config {tracker.cfg.flag.value}")
-    if meta["localization_only"]:
-        raise NotImplementedError(
-            "the checkpoint was saved in localization mode, which is not ported "
-            "yet: ROADMAP.md Queue 1 item 13")
     cap = tracker.cfg.capacity
     expect = {"m_kf_pose": (cap.max_keyframes, 3, 4), "m_pt_pos": (cap.max_points, 3),
               "c_last_kp": (cap.max_features, 2)}
@@ -112,7 +170,8 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
         if tuple(data[k].shape) != shape:
             raise ValueError(f"checkpoint field {k} shape {data[k].shape} != capacity {shape}")
 
-    d = {k: data[f"c_{k}"] for k in ChunkCarry._fields if k not in ("m", "table", "obj_rng")}
+    d = {k: data[f"c_{k}"] for k in ChunkCarry._fields
+         if k not in ("m", "table", "obj_rng") and f"c_{k}" in data}
     d["m"] = {k[2:]: data[k] for k in data.files if k.startswith("m_")}
     cfg = tracker.cfg
     if cfg.flag.objects_enabled:
@@ -139,6 +198,8 @@ def load_chunked_checkpoint(path: str, tracker) -> dict:
     tracker.n_object_merges = meta.get("n_object_merges", 0)
     tracker.n_object_kills = meta.get("n_object_kills", 0)
     tracker._loop_checked = meta["loop_checked"]
+    # a checkpoint saved in localization mode resumes in it
+    tracker.set_localization_mode(meta["localization_only"])
     if "loop_rng_state" in data:
         tracker.loop_rng.set_state(torch.as_tensor(data["loop_rng_state"]))
     else:

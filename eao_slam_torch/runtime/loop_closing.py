@@ -3,9 +3,12 @@ essential-graph correction and global BA (the LoopClosing thread).
 
 The reference package's ``runtime/loop_closing.py`` on tensors:
 
-- place recognition: every keyframe gets an L2-normalised histogram over
-  8192 (byte position, byte value) words of its descriptors, scored with
-  tf-idf weights (host numpy, as in the reference);
+- place recognition: with a BoW database (the interactive tracker's
+  ``kfdb`` and ``vocab``), KeyFrameDatabase::DetectLoopCandidates with the
+  lowest covisible neighbour's BoW score as the minimum; without one (the
+  chunked path), every keyframe's L2-normalised histogram over 8192 (byte
+  position, byte value) words of its descriptors, scored with tf-idf
+  weights (host numpy, as in the reference);
 - DetectLoop's gates: covisible keyframes excluded, the lowest covisible
   neighbour's score as the minimum, and a candidate group seen on three
   consecutive keyframes;
@@ -15,10 +18,11 @@ The reference package's ``runtime/loop_closing.py`` on tensors:
   re-anchoring through each point's first keyframe, fusion of the
   duplicated loop points, then a global BA.
 
-The chunked path has no vocabulary, so the reference's vocabulary branch
-(``ops/bow.py``, ``runtime/keyframe_db.py``, the interactive tracker's)
-is not part of this module. ``tracker`` is the chunked tracker's
-``_LoopView`` (``runtime/scan_tracker.py``).
+``tracker`` is the interactive MonoTracker or the chunked tracker's
+``_LoopView`` (``runtime/scan_tracker.py``). The view serves covisibility
+rows from one cached device product; a MonoTracker's are counted on the
+host with ``np.isin``, as the reference counts them for it (the two
+differ where a keyframe binds one point twice).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from eao_slam_torch.config import SystemConfig
 from eao_slam_torch.geometry import se3, sim3
 from eao_slam_torch.geometry.camera import project
 from eao_slam_torch.ops import matching
+from eao_slam_torch.runtime.keyframe_db import score_l1
 from eao_slam_torch.runtime.local_mapping import run_local_ba
 from eao_slam_torch.runtime.tracking_kernels import set_last_wins, set_rows_drop
 from eao_slam_torch.solvers.pose_graph import PoseGraphProblem, optimize_essential_graph
@@ -123,40 +128,67 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
 
-    def _detect(self, tracker, slot: int, order: int) -> List[int]:
-        """DetectLoop: tf-idf score gate + 3-consecutive-keyframe
-        consistency. Returns the consistent candidates in score order.
+    def _covis_weights(self, tracker, slot: int) -> np.ndarray:
+        """Shared points of ``slot`` with every keyframe: the tracker's own
+        rows where it serves them, else a host count over the live
+        keyframes' observation rows."""
+        if hasattr(tracker, "covis_weights"):
+            return tracker.covis_weights(slot)
+        cur = tracker.kf_pt_host[slot]
+        cur_set = cur[cur >= 0]
+        w = np.zeros((self.cfg.capacity.max_keyframes,), np.int64)
+        for s in tracker.kf_slots:
+            if s == slot or not tracker.kf_valid_host[s]:
+                continue
+            other = tracker.kf_pt_host[s]
+            w[s] = np.isin(cur_set, other[other >= 0]).sum()
+        return w
 
-        The document frequency counts every valid keyframe of the view,
-        also those later in a replayed backlog whose signatures are still
-        zero: that is the reference's behaviour, kept for parity
-        (``ROADMAP.md`` Queue 3)."""
-        covis = tracker.covis_weights(slot)
+    def _detect(self, tracker, slot: int, order: int) -> List[int]:
+        """DetectLoop: score gate + 3-consecutive-keyframe consistency,
+        through the tracker's BoW database when it has one, tf-idf
+        signature scores otherwise. Returns the consistent candidates in
+        score order.
+
+        The signature branch's document frequency counts every valid
+        keyframe of the view, also those later in a replayed backlog whose
+        signatures are still zero: that is the reference's behaviour, kept
+        for parity (``ROADMAP.md`` Queue 3)."""
+        covis = self._covis_weights(tracker, slot)
         # temporal exclusion relative to THIS keyframe's order: its 8
         # predecessors and everything after it
         recent = set(tracker.kf_slots[max(0, order - 8):])
-        K = self.cfg.capacity.max_keyframes
-        docs = [s for s in tracker.kf_slots if tracker.kf_valid_host[s]]
-        sigs = self.signatures[:K]
-        df = (sigs[docs] > 0).sum(axis=0)
-        idf = np.maximum(np.log(max(len(docs), 2) / (1.0 + df)), 0.0)
-        w = sigs * idf[None, :]
-        w = w / np.maximum(np.linalg.norm(w, axis=1), 1e-9)[:, None]
-        scores = w @ w[slot]
-        # minimum acceptable score = worst score among covisible neighbours
-        neigh = covis >= 15
-        min_score = max(float(scores[neigh].min()) if neigh.any() else 0.3, 0.05)
-
-        scored: list = []
-        for s in tracker.kf_slots:
-            if s == slot or s in recent or not tracker.kf_valid_host[s]:
-                continue
-            if covis[s] > 0:            # connected -> not a loop
-                continue
-            if scores[s] >= min_score:
-                scored.append((float(scores[s]), s))
-        scored.sort(reverse=True)
-        scored = scored[:5]
+        kfdb = getattr(tracker, "kfdb", None)
+        if kfdb is not None and tracker.vocab is not None:
+            q = kfdb.vectors[slot]
+            neigh = np.flatnonzero(covis >= 15)
+            min_score = (max(float(score_l1(kfdb.vectors[neigh], q).min()), 0.05)
+                         if neigh.size else 0.15)
+            cands = kfdb.detect_loop_candidates(q, covis, tracker.covis_matrix(), min_score, slot)
+            scored = [(1.0 - 1e-3 * i, s) for i, s in enumerate(cands)
+                      if s not in recent and tracker.kf_valid_host[s]]
+        else:
+            K = self.cfg.capacity.max_keyframes
+            docs = [s for s in tracker.kf_slots if tracker.kf_valid_host[s]]
+            sigs = self.signatures[:K]
+            df = (sigs[docs] > 0).sum(axis=0)
+            idf = np.maximum(np.log(max(len(docs), 2) / (1.0 + df)), 0.0)
+            w = sigs * idf[None, :]
+            w = w / np.maximum(np.linalg.norm(w, axis=1), 1e-9)[:, None]
+            scores = w @ w[slot]
+            # minimum acceptable score = worst score among covisible neighbours
+            neigh = covis >= 15
+            min_score = max(float(scores[neigh].min()) if neigh.any() else 0.3, 0.05)
+            scored = []
+            for s in tracker.kf_slots:
+                if s == slot or s in recent or not tracker.kf_valid_host[s]:
+                    continue
+                if covis[s] > 0:            # connected -> not a loop
+                    continue
+                if scores[s] >= min_score:
+                    scored.append((float(scores[s]), s))
+            scored.sort(reverse=True)
+            scored = scored[:5]
         if not scored:
             self.consistent_streak.clear()
             return []
@@ -166,7 +198,7 @@ class LoopCloser:
         new_streaks: dict = {}
         consistent: list = []
         for _, cand in scored:
-            cand_covis = tracker.covis_weights(cand)
+            cand_covis = self._covis_weights(tracker, cand)
             group = {cand} | {s for s in tracker.kf_slots if cand_covis[s] >= 15}
             streak = 1
             for prev_group, prev_streak in self.consistent_streak.items():
@@ -229,7 +261,8 @@ class LoopCloser:
         self._correct_loop(tracker, slot, cand, res.S12)
         self._fuse_loop_points(tracker, torch.clamp(p1g, 0, P - 1),
                                torch.clamp(pt2, 0, P - 1), pair_ok & res.inliers)
-        tracker.invalidate_covis()   # fusion rewired observations
+        if hasattr(tracker, "invalidate_covis"):
+            tracker.invalidate_covis()   # fusion rewired observations
         # global BA over the fused, corrected map straightens the chain
         self._global_ba(tracker, fixed_slot=cand)
         return True
@@ -296,7 +329,7 @@ class LoopCloser:
         # covisibility edges (>= 30 shared points, the reference's >= 100
         # scaled to this feature budget)
         for i_idx, a in enumerate(slots):
-            covis = tracker.covis_weights(a)
+            covis = self._covis_weights(tracker, a)
             for b in slots[i_idx + 1:]:
                 if covis[b] >= 30 and abs(order_of[a] - order_of[b]) > 1:
                     ei.append(a)

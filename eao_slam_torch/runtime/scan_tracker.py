@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from eao_slam_torch.config import SystemConfig, check_supported
+from eao_slam_torch.config import SystemConfig
 from eao_slam_torch.device import fp32_solvers, resolve_device
 from eao_slam_torch.geometry import se3
 from eao_slam_torch.geometry.camera import undistort_points
@@ -82,6 +82,9 @@ class ChunkCarry(NamedTuple):
     frame_id: int
     table: Optional[ObjectTable] = None       # object landmarks (object layer on)
     obj_rng: Optional[torch.Generator] = None  # host generator of the iForest draws
+    # False in localization mode (mbOnlyTracking, src/Tracking.cc:245-257):
+    # no keyframes, no BA, no object updates
+    allow_kf: bool = True
 
 
 class ChunkOutputs(NamedTuple):
@@ -237,7 +240,6 @@ def make_chunk_step(cfg: SystemConfig):
     has_boxes) -> (carry, (T, state, n_inliers, is_kf, kf_count, pt_count)).
     ``has_boxes`` (host bool: the frame has a valid detector box) gates the
     object pass."""
-    check_supported(cfg)
     cam = cfg.camera
     tcfg = cfg.tracking
     mcfg = cfg.mapping
@@ -247,9 +249,14 @@ def make_chunk_step(cfg: SystemConfig):
     scale2_by_device = {}
     t_table_by_device = {}
 
-    def object_pass(m: MapState, table: ObjectTable, T, frame: Frame, cur_pt, frame_id):
+    psi, depth = psi_depth_for(N_OBJ_SAMPLE)
+
+    def object_pass(m: MapState, table: ObjectTable, T, frame: Frame, cur_pt, frame_id,
+                    gen: Optional[torch.Generator]):
         """The object work of TrackWithMotionModel (src/Tracking.cc:1246-1647)
-        on the device: returns (m, table, appear_new as a device bool)."""
+        on the device: returns (m, table, appear_new as a device bool).
+        With ``per_frame_iforest`` the iForest cull runs here, its draws
+        from ``gen``."""
         dev = m.pt_pos.device
         if dev not in t_table_by_device:
             t_table_by_device[dev] = torch.as_tensor(make_t_table(), device=dev)
@@ -261,11 +268,13 @@ def make_chunk_step(cfg: SystemConfig):
             use_iou=flag.use_iou, use_nonparam=flag.use_nonparam, use_ttest=flag.use_ttest,
             img_w=int(cam.width), img_h=int(cam.height),
             min_points=cfg.objects.min_points_per_object)
-        # the iForest cull runs once per chunk (chunk_iforest_cull in
-        # track_chunk), as in the reference package's chunked tracker
-        m, table = apply_frame_update(cam, m, table, det, res.assoc, res.new_slots,
-                                      frame.boxes, frame.box_class, T, frame.kp, cur_pt,
-                                      frame_id)
+        # by default the iForest cull runs once per chunk
+        # (chunk_iforest_cull in track_chunk), as in the reference package's
+        # chunked tracker
+        m, table = apply_frame_update(
+            cam, m, table, det, res.assoc, res.new_slots, frame.boxes, frame.box_class, T,
+            frame.kp, cur_pt, frame_id, draw=lambda mask: draw_iforest(gen, mask, psi, depth),
+            depth=depth, run_iforest=cfg.objects.per_frame_iforest)
         table = table._replace(re_obj=table.re_obj + res.re_inc)
         if flag.use_yaw_lines:
             targets = torch.where(res.assoc >= 0, res.assoc, res.new_slots)
@@ -369,8 +378,9 @@ def make_chunk_step(cfg: SystemConfig):
 
         table = carry.table
         appear_new = False
-        if table is not None and tracked and has_boxes:
-            m, table, appear_new = object_pass(m, table, T, frame, cur_pt, frame_id)
+        if table is not None and tracked and has_boxes and carry.allow_kf:
+            m, table, appear_new = object_pass(m, table, T, frame, cur_pt, frame_id,
+                                               carry.obj_rng)
 
         # keyframe policy (Tracking::NeedNewKeyFrame; a new object landmark
         # forces a keyframe, src/Tracking.cc:1850-1897)
@@ -379,7 +389,8 @@ def make_chunk_step(cfg: SystemConfig):
         base = max(carry.ref_kf_tracked, peak, 1)
         c1 = frames_since >= tcfg.max_frames_between_kf
         c2 = n2 < ratio32 * np.float32(base)
-        may_kf = tracked and n2 > tcfg.min_matches_ref_kf and carry.kf_count < K
+        may_kf = (tracked and carry.allow_kf and n2 > tcfg.min_matches_ref_kf
+                  and carry.kf_count < K)
         need_kf = may_kf and (c1 or c2)
         if may_kf and not need_kf and torch.is_tensor(appear_new):
             need_kf = bool(appear_new)     # the object pass's one readback
@@ -405,7 +416,7 @@ def make_chunk_step(cfg: SystemConfig):
             ref_kf_tracked=n2 if need_kf else carry.ref_kf_tracked,
             peak_since_kf=n2 if need_kf else peak,
             kf_count=kf_count, pt_count=pt_count, frame_id=frame_id,
-            table=table, obj_rng=carry.obj_rng,
+            table=table, obj_rng=carry.obj_rng, allow_kf=carry.allow_kf,
         )
         return new_carry, (T, state, n2, need_kf, kf_count, pt_count)
 
@@ -468,10 +479,11 @@ def make_track_chunk(cfg: SystemConfig):
                 kf_pt_idx[newest] = fused
                 m = m._replace(kf_pt_idx=kf_pt_idx)
             carry = carry._replace(m=m)
-        if carry.table is not None:
+        if carry.table is not None and carry.allow_kf and not cfg.objects.per_frame_iforest:
             # iForest outlier cull over every object updated this chunk
             # (per frame in the C++ reference, src/Object.cc:1202-1309;
-            # once per chunk in the reference package)
+            # once per chunk in the reference package); localization mode
+            # freezes the object map
             gen = carry.obj_rng
             m, table = chunk_iforest_cull(
                 cam, carry.m, carry.table, carry.T_last, carry.frame_id - C + 1,
@@ -541,7 +553,6 @@ class ChunkedTracker:
     ``cuda`` unless told otherwise."""
 
     def __init__(self, cfg: SystemConfig, chunk: int = 32, device=None):
-        check_supported(cfg)
         self.cfg = cfg
         self.chunk = chunk
         self.device = resolve_device(device)
@@ -562,7 +573,7 @@ class ChunkedTracker:
         # called with (kf_remap, pt_remap) numpy arrays after every
         # cull + compact pass, so host-side per-slot state survives it
         self.compaction_listeners: list = []
-        self._localization_only = False   # localization mode: Queue 1 item 13
+        self._localization_only = False   # localization mode: the map is frozen
         # loop closing at chunk rate; both RANSACs of the between-chunk
         # passes draw from this generator (on the host, so a seed gives the
         # same draws on every device)
@@ -602,7 +613,7 @@ class ChunkedTracker:
             state=OK, frames_since_kf=0,
             ref_kf_tracked=int(t.ref_kf_tracked), peak_since_kf=0,
             kf_count=len(t.kf_slots), pt_count=int(t.n_points),
-            frame_id=int(t.frame_id),
+            frame_id=int(t.frame_id), allow_kf=not self._localization_only,
         )
         if self.cfg.flag.objects_enabled:
             # the reference's object pass runs only once the map exists, so
@@ -614,6 +625,34 @@ class ChunkedTracker:
         self.kf_count_host = len(t.kf_slots)
         self.pt_count_host = int(t.n_points)
         self.state_host = OK
+
+    # -- mode switches --------------------------------------------------
+
+    def reset(self):
+        """Clear the map and the carry and restart from scratch
+        (System::Reset): a new bootstrap tracker, no records, a new loop
+        closer."""
+        self.inner = MonoTracker(self.cfg, self.device)
+        self.carry = None
+        self.records = []
+        self.last_kf_slots = []
+        self.n_maintenance = 0
+        self.kf_count_host = 0
+        self.pt_count_host = 0
+        self.state_host = LOST
+        self._loop_checked = 0
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self.cfg)
+
+    def set_localization_mode(self, on: bool):
+        """Freeze or unfreeze the map (mbOnlyTracking,
+        src/Tracking.cc:245-257): with the carry's allow_kf False the chunk
+        inserts no keyframes, runs no BA or culling and leaves the object
+        map alone; no merge or maintenance between chunks."""
+        self._localization_only = bool(on)
+        self.inner.set_localization_mode(on)
+        if self.carry is not None:
+            self.carry = self.carry._replace(allow_kf=not on)
 
     # -- chunked tracking ------------------------------------------------
 

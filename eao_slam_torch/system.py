@@ -1,5 +1,8 @@
-"""System facade for chunked tracking, in geometry mode or with the EAO
-object layer (``flag=DemoFlag.EAO`` or another object-layer flag).
+"""System facade, in geometry mode or with the EAO object layer
+(``flag=DemoFlag.EAO`` or another object-layer flag), over one of two
+trackers: the chunked tracker (the default) or, with ``chunked=False``,
+the interactive per-frame MonoTracker, which returns a pose for every
+frame and decides every branch on the host (the inspection path).
 
 ``System(cfg).track_monocular(img, t, boxes=...)`` bootstraps two-view
 initialization frame by frame, then buffers raw images (and their offline
@@ -11,12 +14,17 @@ object merge, map maintenance, loop closing and relocalization.
 Poses come back at chunk granularity; ``flush()`` dispatches a partial
 tail chunk, ``frame_trajectory()`` returns every tracked pose and
 ``current_pose()`` the newest one, extrapolated over the buffered frames.
+With ``chunked=False`` each frame goes through ``MonoTracker.track`` as it
+arrives and its pose comes back at once.
+``reset()`` clears the map and restarts from scratch;
+``activate_localization_mode()`` freezes the map and keeps tracking
+against it until ``deactivate_localization_mode()``.
 ``set_groundtruth`` arms the GT-pose protocol of a TUM sequence: the
 initializer frame's ground-truth pose rotates the initial map onto the
 ground. ``save_keyframe_trajectory_tum``, ``save_frame_trajectory_tum`` and
 ``save_objects_json`` export a run; ``timing_stats`` summarises the time
 per ``track_monocular`` call. ``save_checkpoint`` / ``load_checkpoint``
-stop and resume a run.
+stop and resume a chunked run.
 
 In FULL mode the images of keyframes are kept (keyed by keyframe slot,
 re-keyed through compactions), and ``shutdown()`` runs the offline dense
@@ -38,12 +46,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from eao_slam_torch.config import DemoFlag, SystemConfig, check_supported, tum3_config
+from eao_slam_torch.config import DemoFlag, SystemConfig, tum3_config
+from eao_slam_torch.device import fp32_solvers, resolve_device
 from eao_slam_torch.geometry import se3
 from eao_slam_torch.io.trajectory import save_tum
 from eao_slam_torch.io.tum import GroundTruth, load_groundtruth, lookup_pose_matrix
 from eao_slam_torch.runtime.frame import Frame, empty_boxes, frame_from_image
 from eao_slam_torch.runtime.scan_tracker import ChunkedTracker, batch_from_frames
+from eao_slam_torch.runtime.tracker import MonoTracker
 
 OK = 2
 
@@ -55,10 +65,15 @@ class System:
                  flag: DemoFlag | str = DemoFlag.NONE, chunked: bool = True,
                  chunk: int = 32, device=None):
         self.cfg = config if config is not None else tum3_config(flag)
-        check_supported(self.cfg, chunked=chunked)
-        self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device)
-        self.tracker.compaction_listeners.append(self._on_compaction)
-        self.device = self.tracker.device
+        self.chunked = chunked
+        if chunked:
+            self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device)
+            self.tracker.compaction_listeners.append(self._on_compaction)
+            self.device = self.tracker.device
+        else:
+            self.device = resolve_device(device)
+            fp32_solvers()
+            self.tracker = MonoTracker(self.cfg, self.device)
         # retained keyframe images (float32 [H, W]) for the offline dense
         # phase, keyed by keyframe slot and remapped through compactions
         self._kf_images: dict = {}
@@ -75,14 +90,15 @@ class System:
 
     @property
     def _armed(self) -> bool:
-        return self.tracker.carry is not None
+        return self.chunked and self.tracker.carry is not None
 
     def track_monocular(self, img, timestamp: float, boxes=None) -> Optional[np.ndarray]:
         """Feed one grayscale image [H, W] and, with the object layer, its
         detector boxes: (boxes [B, 4] x y w h, class [B], score [B], valid
         [B]) in the offline-detector contract (``io.tum.load_yolo_boxes``).
-        Returns T_cw [3, 4] when a pose is known at this call (bootstrap, or
-        the last frame of a chunk just dispatched), else None."""
+        Returns T_cw [3, 4] when a pose is known at this call (every tracked
+        frame with ``chunked=False``; chunked: bootstrap, or the last frame
+        of a chunk just dispatched), else None."""
         t0 = time.perf_counter()
         T = None
         if self._armed:
@@ -124,6 +140,14 @@ class System:
         gt_pose = None
         if self._groundtruth is not None:
             gt_pose = lookup_pose_matrix(self._groundtruth, timestamp)
+        if not self.chunked:
+            tr = self.tracker
+            n_kf_before = len(tr.kf_slots)
+            T = tr.track(frame, float(timestamp), gt_pose=gt_pose)
+            if (img is not None and self.cfg.flag.semidense_enabled
+                    and len(tr.kf_slots) > n_kf_before):
+                self._kf_images[tr.kf_slots[-1]] = np.asarray(img, np.float32)
+            return T
         inner = self.tracker.inner
         n_kf_before = len(inner.kf_slots)
         self.tracker.bootstrap(frame, float(timestamp), gt_pose=gt_pose)
@@ -194,8 +218,12 @@ class System:
         ``extrapolate`` and frames still buffered while tracking is OK, that
         pose carried through the motion model once per buffered frame (the
         prediction the next chunk starts from) with the newest buffered
-        timestamp. None before initialization."""
+        timestamp. None before initialization. With ``chunked=False``: (None,
+        the last tracked pose), as the reference returns it (``ROADMAP.md``
+        Queue 3)."""
         tr = self.tracker
+        if not self.chunked:
+            return None if tr.last_T is None else (None, np.asarray(tr.last_T))
         t_last = T_last = None
         for t, T, _ in reversed(tr.records):
             if T is not None:
@@ -211,6 +239,30 @@ class System:
             T = se3.compose(vel, T)
         buf = self._img_buf or self._frame_buf
         return float(buf[-1][1]), T.cpu().numpy()
+
+    def reset(self) -> None:
+        """Clear the map and restart tracking from scratch (System::Reset):
+        pending frames, retained keyframe images and the dense products go
+        too."""
+        self.tracker.reset()
+        self._img_buf = []
+        self._frame_buf = []
+        self._kf_images.clear()
+        self._semidense_result = None
+        self._semidense_slots = []
+        self._lines3d = None
+        self._mesh_tris = None
+
+    def activate_localization_mode(self) -> None:
+        """Track against a frozen map (System::ActivateLocalizationMode,
+        src/System.cc:254-270): no keyframes, points or object updates.
+        Buffered frames are tracked first."""
+        self.flush()
+        self.tracker.set_localization_mode(True)
+
+    def deactivate_localization_mode(self) -> None:
+        self.flush()
+        self.tracker.set_localization_mode(False)
 
     def timing_stats(self) -> dict:
         """Median and mean seconds per ``track_monocular`` call, and the
@@ -256,6 +308,7 @@ class System:
         retained keyframe images."""
         from eao_slam_torch.runtime.checkpoint import save_chunked_checkpoint
 
+        self._require_chunked()
         self.flush()
         save_chunked_checkpoint(path, self.tracker, kf_images=self._kf_images)
 
@@ -265,11 +318,17 @@ class System:
         holds. Returns the file's meta dict."""
         from eao_slam_torch.runtime.checkpoint import load_chunked_checkpoint, load_kf_images
 
+        self._require_chunked()
         meta = load_chunked_checkpoint(path, self.tracker)
         self._kf_images = load_kf_images(path)
         self._img_buf = []
         self._frame_buf = []
         return meta
+
+    def _require_chunked(self) -> None:
+        if not self.chunked:
+            raise ValueError("System checkpoints cover the chunked tracker; a MonoTracker's "
+                             "map goes through runtime.checkpoint.save_checkpoint")
 
     def shutdown(self, semidense: bool = True):
         """Flush the tail chunk; then, in FULL mode with at least 4 retained

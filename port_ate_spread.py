@@ -2,6 +2,7 @@
 
     python3 port_ate_spread.py [--flag EAO|LineAndiForest] [--seeds 7 8 9 ...] [--device cpu]
     python3 port_ate_spread.py --flag LineAndiForest --seeds 5 --record-yaw DIR
+    python3 port_ate_spread.py --interactive [--flag EAO] [--seeds ...] [--device cpu]
 
 The counterpart of reference_ate_spread.py for the port: chip_smoke.py's
 main path (geometry mode, or with ``--flag EAO`` its EAO phase and with
@@ -20,6 +21,13 @@ with its inputs and outputs, and writes them to
 ``DIR/yaw_calls_seed<seed>.npz``; ``reference_ate_spread.py --replay-yaw``
 runs the reference's functions on the same inputs. The recording copies
 every call to the host, so a recorded run's fps is not the program's.
+``--interactive`` runs the interactive per-frame tracker instead
+(System(chunked=False), every frame of the arc through track_monocular,
+chip_smoke.py's ``drive_interactive``, the protocol of
+``reference_ate_spread.py --interactive``): per seed the frame that
+initialized, the frames tracked after it, the sim3 ATE of every tracked
+frame (and the objects with ``--flag EAO``), then the median and the
+worst.
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ def main() -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=list(chip_smoke.SEEDS))
     p.add_argument("--flag", choices=("None", "EAO", "LineAndiForest"), default="None")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--interactive", action="store_true",
+                   help="the interactive per-frame tracker, System(chunked=False)")
     p.add_argument("--record-yaw", metavar="DIR",
                    help="line mode: write every yaw call of each run to DIR")
     args = p.parse_args()
@@ -100,6 +110,16 @@ def main() -> int:
     boxes = chip_smoke.bench_boxes(gt) if args.flag != "None" else None
     runs = []
     for seed in args.seeds:
+        if args.interactive:
+            from eao_slam_torch.system import System
+
+            sysm = System(chip_smoke.main_config(seed, boxes is not None, args.flag),
+                          chunked=False, device=args.device)
+            r = {"seed": seed, "flag": args.flag, "interactive": True,
+                 **chip_smoke.drive_interactive(sysm, ts, gt, images, boxes)}
+            runs.append(r)
+            print(json.dumps(r), flush=True)
+            continue
         with contextlib.ExitStack() as stack:
             calls = stack.enter_context(YawCalls()) if args.record_yaw else None
             r = chip_smoke.run_main_path(ts, gt, images, seed, boxes=boxes, device=args.device,
@@ -114,13 +134,14 @@ def main() -> int:
         print(json.dumps(r), flush=True)
     ates = [r["ate_m"] for r in runs]
     summary = {"flag": args.flag, "device": args.device, "median_ate_m": float(np.median(ates)),
-               "max_ate_m": float(np.max(ates)), "seeds": args.seeds}
+               "max_ate_m": float(np.max(ates)), "seeds": args.seeds,
+               "min_tracked_share": min(r["tracked"] / r["total"] for r in runs)}
     if boxes is not None:
         summary["min_objects"] = min(r["objects"] for r in runs)
         summary["max_object_centre_err_m"] = max(max(r["object_centre_err_m"]) for r in runs)
         summary["max_supported_yaw_err_deg"] = max(
-            [abs(o["yaw_deg"]) for r in runs for o in r["object_yaws"] if o["votes"] >= 3],
-            default=None)
+            [abs(o["yaw_deg"]) for r in runs for o in r.get("object_yaws", [])
+             if o["votes"] >= 3], default=None)
     print(json.dumps(summary))
     return 0
 

@@ -5,6 +5,8 @@
     JAX_PLATFORMS=cpu python reference_ate_spread.py --flag LineAndiForest --ground --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --replay-yaw DIR/yaw_calls_seed5.npz ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --dense
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive [--flag EAO] [--modes] \
+        --seeds ...
 
 Runs the reference package (eao_slam_tpu) as bench.py's headline mode
 does (``--flag None``, the default) or its EAO mode (``--flag EAO``, or
@@ -66,6 +68,19 @@ started from the sim3 of the keyframe centres onto their true centres
 (the mean distance, which far outliers dominate, and the median).
 chip_smoke.py prints these figures beside the port's (about 10 minutes
 and 4 GB on the CPU).
+
+``--interactive`` runs the interactive per-frame tracker instead:
+``System(cfg, chunked=False)`` at the same capacities with loop closing
+and the BoW vocabulary on (the configuration's defaults), every frame of
+the arc through ``track_monocular`` (with the boxes in an object mode),
+through chip_smoke.py's ``drive_interactive``: it prints the frame that
+initialized, the frames tracked after it, the sim3 ATE of every tracked
+frame, the keyframes and points, whether the vocabulary was trained and
+holds every live keyframe (and the objects in an object mode), then the
+median and the worst. With ``--modes`` each geometry run goes on through
+``interactive_modes``: the kidnap (blank frames, then the frames from 40,
+relocalization within 5 frames and its error), localization mode over
+frames 60-91 and a reset. About 10 minutes a seed on one core.
 
 This is the yardstick that chip_smoke.py's ATE gate is derived from: the
 tracker is chaotic (float noise in one triangulation changes later
@@ -173,6 +188,29 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
                                                        scene.obj_classes)
         out["object_centre_err_sim3_m"] = sim3_object_errors(m, tab, ts, gt, scene.obj_centers)
         out["object_yaws"] = object_yaws(tab)
+    return out
+
+
+def interactive_run(seed: int, images, ts, gt, flag: str = "None", boxes=None,
+                    modes: bool = False) -> dict:
+    """The interactive protocol on the reference (see the module
+    docstring)."""
+    from chip_smoke import N_BOXES as BOXES, drive_interactive, interactive_modes
+    from eao_slam_tpu.config import CapacityConfig, tum3_config
+    from eao_slam_tpu.system import System
+
+    objects = flag != "None"
+    cap = CapacityConfig(max_keyframes=128, max_points=8192, max_features=1024,
+                         local_ba_points=2048,
+                         **(dict(max_boxes=BOXES, max_objects=32) if objects else {}))
+    sysm = System(tum3_config(flag).replace(capacity=cap, seed=seed), chunked=False)
+    per_frame = None
+    if objects:
+        per_frame = [tuple(np.asarray(b[k]) for b in boxes) for k in range(len(images))]
+    out = {"seed": seed, "flag": flag, "interactive": True,
+           **drive_interactive(sysm, ts, gt, images, per_frame)}
+    if modes:
+        out["modes"] = interactive_modes(sysm, ts, gt, images)
     return out
 
 
@@ -347,6 +385,10 @@ def main() -> None:
                    help="the reference's yaw functions on yaw calls recorded from the port")
     p.add_argument("--dense", action="store_true",
                    help="bench.py's dense protocol in FULL mode, with the cloud's quality")
+    p.add_argument("--interactive", action="store_true",
+                   help="the interactive per-frame tracker, System(chunked=False)")
+    p.add_argument("--modes", action="store_true",
+                   help="with --interactive: kidnap, localization mode and reset after the pass")
     args = p.parse_args()
 
     import jax
@@ -379,18 +421,22 @@ def main() -> None:
         boxes = tuple(np.stack([np.asarray(b[k]) for b in per_frame]) for k in range(4))
     runs = []
     for seed in args.seeds:
-        r = run(seed, images, ts, gt, args.flag, boxes, scene)
+        if args.interactive:
+            r = interactive_run(seed, images, ts, gt, args.flag, boxes, args.modes)
+        else:
+            r = run(seed, images, ts, gt, args.flag, boxes, scene)
         runs.append(r)
         print(json.dumps(r), flush=True)
     ates = [r["ate_m"] for r in runs]
     summary = {"flag": args.flag, "median_ate_m": float(np.median(ates)),
-               "max_ate_m": float(np.max(ates)), "seeds": args.seeds}
+               "max_ate_m": float(np.max(ates)), "seeds": args.seeds,
+               "min_tracked_share": min(r["tracked"] / r["total"] for r in runs)}
     if boxes is not None:
         summary["min_objects"] = min(r["objects"] for r in runs)
         summary["max_object_centre_err_m"] = max(max(r["object_centre_err_m"]) for r in runs)
         summary["max_supported_yaw_err_deg"] = max(
-            [abs(o["yaw_deg"]) for r in runs for o in r["object_yaws"] if o["votes"] >= 3],
-            default=None)
+            [abs(o["yaw_deg"]) for r in runs for o in r.get("object_yaws", [])
+             if o["votes"] >= 3], default=None)
     print(json.dumps(summary))
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no reference package, the card by default,
 the default configuration builds, the object-layer flags construct (with
 and without line-alignment yaw, and FULL with its offline dense phase),
-and the unported interactive tracker refuses loudly."""
+and ``chunked=False`` builds the interactive MonoTracker."""
 
 import subprocess
 import sys
@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
         "'eao_slam_torch.objects.yaw', 'eao_slam_torch.ops.lines', "
         "'eao_slam_torch.io.trajectory', 'eao_slam_torch.dense.semidense', "
         "'eao_slam_torch.dense.lines3d', 'eao_slam_torch.dense.mesh', "
-        "'eao_slam_torch.evaluation'}\n"
+        "'eao_slam_torch.evaluation', 'eao_slam_torch.ops.bow', "
+        "'eao_slam_torch.runtime.keyframe_db', 'eao_slam_torch.runtime.tracker', "
+        "'eao_slam_torch.objects.cuboid_proposal'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -53,12 +55,13 @@ def _cfg(**kw):
 def test_entry_points_need_a_card_or_an_explicit_cpu():
     from eao_slam_torch.system import System
 
-    if torch.cuda.is_available():
-        assert System(_cfg()).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            System(_cfg())
-    assert System(_cfg(), device="cpu").device.type == "cpu"
+    for chunked in (True, False):
+        if torch.cuda.is_available():
+            assert System(_cfg(), chunked=chunked).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                System(_cfg(), chunked=chunked)
+        assert System(_cfg(), chunked=chunked, device="cpu").device.type == "cpu"
 
 
 def test_default_configuration_builds():
@@ -76,19 +79,21 @@ def test_default_configuration_builds():
 
 @pytest.mark.parametrize("case", ["LineAndiForest", "Full", "per_frame"])
 def test_unported_modes_raise(case):
-    """The interactive tracker (chunked=False) is item 13 and refuses, in
-    FULL mode too; LineAndiForest and FULL (item 12, its offline dense
-    phase ported) construct the chunked path."""
-    from eao_slam_torch.config import check_supported
+    """No mode is refused any more: the interactive tracker
+    (chunked=False) builds a MonoTracker in geometry mode and in FULL (its
+    loop closer, its object updater in FULL, no vocabulary until the
+    first keyframes); LineAndiForest and FULL construct the chunked path."""
+    from eao_slam_torch.runtime.tracker import MonoTracker
     from eao_slam_torch.system import System
 
     if case == "per_frame":
         for flag in (DemoFlag.NONE, DemoFlag.FULL):
-            with pytest.raises(NotImplementedError, match="item 13") as err:
-                System(_cfg(flag=flag), chunked=False, device="cpu")
-            assert "item 12" not in str(err.value)
+            sysm = System(_cfg(flag=flag), chunked=False, device="cpu")
+            assert isinstance(sysm.tracker, MonoTracker) and not sysm.chunked
+            assert sysm.tracker.loop_closer is not None and sysm.tracker.vocab is None
+            assert (sysm.tracker.obj_updater is not None) == (flag == DemoFlag.FULL)
+            assert sysm.shutdown() is None and sysm.current_pose() is None
     else:
-        check_supported(_cfg(flag=DemoFlag(case)))
         for sysm in (System(_cfg(flag=DemoFlag(case)), device="cpu"),
                      System(flag=case, device="cpu")):
             assert sysm.cfg.flag.use_yaw_lines
@@ -138,6 +143,11 @@ def test_config_matches_reference_fields_and_defaults():
         ref = {f.name: f.default for f in dataclasses.fields(getattr(jc, name))}
         for field, default in ours.items():
             assert ref[field] == default, (name, field)
+    ref_sys = {f.name: f.default for f in dataclasses.fields(jc.SystemConfig)}
+    for field in ("seed", "vocab_path", "bow_bootstrap_kfs", "use_bow"):
+        assert getattr(tc.SystemConfig(), field) == ref_sys[field], field
+    assert {"use_cubeslam", "per_frame_iforest"} <= {
+        f.name for f in dataclasses.fields(tc.ObjectConfig)}
     assert {f.value for f in tc.DemoFlag} == {f.value for f in jc.DemoFlag}
     for f in tc.DemoFlag:
         j = jc.DemoFlag(f.value)

@@ -6,8 +6,11 @@ end's next frame, tracked by the reference. Matching is integer work and
 compares exactly (the neighbour index per feature, the triangulation
 gate, the fused point per feature). Triangulated points come from a
 float32 SVD in another order: 1e-3 of the scene depth on points whose
-parallax passes the gate. The BA agrees as in test_torch_ba.py."""
+parallax passes the gate. The BA agrees as in test_torch_ba.py. The
+duplicate merge (exact rows and validity) and the descriptor refresh
+(descriptors bit for bit) run on constructed inputs."""
 
+import jax.numpy as jnp
 import numpy as np
 
 from eao_slam_tpu.geometry.camera import TUM3 as JCAM
@@ -16,7 +19,8 @@ from eao_slam_tpu.runtime import local_mapping as jlm, tracking_kernels as jtk
 from eao_slam_torch.geometry.camera import TUM3 as TCAM
 from eao_slam_torch.convert import map_state_from_numpy
 from eao_slam_torch.runtime import local_mapping as tlm
-from torch_parity import jax_bootstrap, jax_carry_numpy, n, t
+from torch_parity import (desc_bits_differ, flip_bits, jax_bootstrap, jax_carry_numpy, n,
+                          random_descriptors, t)
 
 
 def _tracked_frame():
@@ -80,3 +84,54 @@ def test_run_local_ba_bootstrap_window():
     keep = rj.pt_slots >= 0
     np.testing.assert_allclose(n(rt.points)[keep], rj.points[keep], atol=1e-3 * 5.0)
     np.testing.assert_array_equal(rt.drop_obs, rj.drop_obs)
+
+
+def test_refresh_point_descriptors_parity():
+    """Six keyframes over 100 points, each observation a noisy copy of its
+    point's descriptor; some rows bind one point twice (the scatter's last
+    write wins in both packages) and the window is padded as the tracker
+    pads it. Descriptors equal bit for bit."""
+    rng = np.random.default_rng(21)
+    K, F, P, W = 6, 64, 100, 8
+    base = random_descriptors(rng, P)
+    kf_pt = rng.integers(-1, P, (K, F)).astype(np.int32)
+    kf_pt[:, 10] = kf_pt[:, 11]                     # duplicate bindings
+    kf_desc = np.stack([flip_bits(rng, base[np.clip(r, 0, P - 1)], 0.04) for r in kf_pt])
+    kf_valid = rng.random((K, F)) < 0.9
+    pt_desc = flip_bits(rng, base, 0.2)
+    win = np.array([0, 1, 2, 3, 4, 5, 0, 0], np.int32)
+    win_valid = np.arange(W) < K
+    want = np.asarray(jlm.refresh_point_descriptors(kf_pt, kf_desc, kf_valid, pt_desc, win,
+                                                    win_valid, n_win=W))
+    got = n(tlm.refresh_point_descriptors(t(kf_pt), t(kf_desc), t(kf_valid), t(pt_desc),
+                                          t(win).long(), t(win_valid)))
+    assert desc_bits_differ(want, pt_desc) > 0
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+def test_merge_duplicate_points_parity():
+    """The bootstrap map with 40 of the tracked frame's points duplicated
+    1 mm away (same descriptor, unbound in the frame); the first 10
+    duplicates take over the keyframes' observations of their originals,
+    so both winner directions occur. Rows and validity exact."""
+    tr, f, T, cur_pt, s2 = _tracked_frame()
+    d = {k: np.array(v) for k, v in jax_carry_numpy(tr.carry)["m"].items()}
+    cur = np.asarray(cur_pt)
+    ids = cur[cur >= 0][:40]
+    dup = int(d["pt_valid"].sum()) + np.arange(40)
+    rng = np.random.default_rng(4)
+    for k in ("pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_valid"):
+        d[k][dup] = d[k][ids]
+    d["pt_pos"][dup] = d["pt_pos"][ids] + rng.normal(0, 1e-3, (40, 3)).astype(np.float32)
+    kf_pt = d["kf_pt_idx"]
+    for a, b in zip(ids[:10], dup[:10]):
+        kf_pt[kf_pt == a] = b
+    args = (d["pt_pos"], d["pt_valid"], d["pt_desc"], d["pt_min_dist"], d["pt_max_dist"], kf_pt,
+            T, f.kp, f.desc, f.octave, f.valid, cur, s2)
+    jk, jv = jlm.merge_duplicate_points(JCAM, *[jnp.asarray(a) for a in args])
+    tk_, tv = tlm.merge_duplicate_points(TCAM, *[t(a) for a in args])
+    jv = np.asarray(jv)
+    assert (~jv[dup]).sum() + (~jv[ids]).sum() >= 20      # merges in both directions
+    assert (~jv[ids[:10]]).any() and (~jv[dup[10:]]).any()
+    np.testing.assert_array_equal(n(tk_), np.asarray(jk))
+    np.testing.assert_array_equal(n(tv), jv)

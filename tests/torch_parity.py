@@ -163,3 +163,74 @@ def jax_feature_bootstrap(cfg):
                                        valid=o["valid"]), float(ts[i]))
         i += 1
     return tr, i
+
+
+def jax_mono_numpy(tr) -> dict:
+    """A reference MonoTracker's state as the dict ``convert.
+    mono_tracker_from_numpy`` takes (numpy arrays, uint32 descriptors)."""
+    lc = tr.loop_closer
+    d = {"map": {k: np.array(v) for k, v in tr.map._asdict().items()},
+         "kf_slots": list(tr.kf_slots),
+         "last_T": None if tr.last_T is None else np.array(tr.last_T),
+         "velocity": None if tr.velocity is None else np.array(tr.velocity),
+         "last_pt": None if tr.last_pt is None else np.array(tr.last_pt),
+         "last_frame": None if tr.last_frame is None else
+         {k: np.array(v) for k, v in tr.last_frame._asdict().items()},
+         "obj_table": None if tr.obj_table is None else
+         {k: np.array(v) for k, v in tr.obj_table._asdict().items()},
+         "loop_closer": None if lc is None else {
+             "signatures": lc.signatures.copy(), "consistent_streak": dict(lc.consistent_streak),
+             "last_loop_order": lc.last_loop_order, "closed_loops": lc.closed_loops},
+         "vocab": None if tr.vocab is None else {
+             "levels": [np.array(x) for x in tr.vocab.levels], "idf": np.array(tr.vocab.idf)},
+         "kfdb": None if tr.kfdb is None else {"vectors": tr.kfdb.vectors.copy(),
+                                               "present": tr.kfdb.present.copy()},
+         "localization_only": tr.localization_only}
+    for k in ("kf_pt_host", "kf_valid_host", "pt_valid_host", "pt_first_kf_host"):
+        d[k] = np.array(getattr(tr, k))
+    for k in ("n_points", "state", "frame_id", "frames_since_kf", "ref_kf_tracked",
+              "peak_since_kf"):
+        d[k] = int(getattr(tr, k))
+    return d
+
+
+def jax_mono_from_numpy(d: dict, cfg):
+    """A reference MonoTracker holding the state ``d`` (``jax_mono_numpy``)."""
+    import jax.numpy as jnp
+
+    from eao_slam_tpu.objects.state import ObjectTable
+    from eao_slam_tpu.ops.bow import Vocabulary
+    from eao_slam_tpu.runtime.frame import Frame
+    from eao_slam_tpu.runtime.keyframe_db import KeyFrameDatabase
+    from eao_slam_tpu.runtime.map_state import MapState
+    from eao_slam_tpu.runtime.tracker import MonoTracker
+
+    tr = MonoTracker(cfg)
+    tr.map = MapState(**{k: jnp.asarray(v) for k, v in d["map"].items()})
+    tr.kf_slots = list(d["kf_slots"])
+    for k in ("kf_pt_host", "kf_valid_host", "pt_valid_host", "pt_first_kf_host"):
+        setattr(tr, k, np.array(d[k]))
+    for k in ("n_points", "state", "frame_id", "frames_since_kf", "ref_kf_tracked",
+              "peak_since_kf"):
+        setattr(tr, k, int(d[k]))
+    tr.last_T = None if d["last_T"] is None else np.array(d["last_T"])
+    tr.velocity = None if d["velocity"] is None else np.array(d["velocity"])
+    tr.last_pt = None if d["last_pt"] is None else jnp.asarray(d["last_pt"])
+    tr.last_frame = None if d["last_frame"] is None else \
+        Frame(**{k: jnp.asarray(v) for k, v in d["last_frame"].items()})
+    if d["obj_table"] is not None:
+        tr.obj_table = ObjectTable(**{k: jnp.asarray(v) for k, v in d["obj_table"].items()})
+    if d["loop_closer"] is not None:
+        lc = d["loop_closer"]
+        tr.loop_closer.signatures = lc["signatures"].copy()
+        tr.loop_closer.consistent_streak = dict(lc["consistent_streak"])
+        tr.loop_closer.last_loop_order = lc["last_loop_order"]
+        tr.loop_closer.closed_loops = lc["closed_loops"]
+    if d["vocab"] is not None:
+        tr.vocab = Vocabulary(levels=tuple(jnp.asarray(x) for x in d["vocab"]["levels"]),
+                              idf=jnp.asarray(d["vocab"]["idf"]))
+        tr.kfdb = KeyFrameDatabase(tr.vocab, tr.cfg.capacity.max_keyframes)
+        tr.kfdb.vectors = d["kfdb"]["vectors"].copy()
+        tr.kfdb.present = d["kfdb"]["present"].copy()
+    tr.localization_only = d["localization_only"]
+    return tr
