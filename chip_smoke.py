@@ -149,10 +149,36 @@ Phases, in order; any failure exits non-zero:
      frame (medians over non-keyframe and keyframe frames, host clock
      between synchronises) and the launches and host synchronisations of
      one traced frame of each kind;
- 12. print the host-clock time of each between-chunk pass (after a
+ 12. the command-line drivers: the arc's frames written as a TUM
+     sequence directory (PNGs by viz.raster.save_png, rgb.txt,
+     groundtruth.txt, yolo_txts/ holding the bench boxes in the
+     offline-YOLO format), then `python -m eao_slam_torch.cli mono_tum EAO`
+     (cli.main in a subprocess, on the card by default): the loader's
+     decoder is printed; gates: >= 90 % of the frames after initialization
+     tracked, >= 3 live objects, one of each scene class, the sim3 ATE of
+     FrameTrajectory.txt under 1.5 times the reference's own run_mono_tum
+     on the same directory (reference_ate_spread.py --cli, on the CPU:
+     0.2590 m, over 0.185 m, so not the EAO per-run limit), and every export
+     the run counted parses with the port's loaders (the dense exports are
+     written only when they hold something, as in the reference). Then
+     run_mono_kitti over 24 frames rendered with the KITTI00_02 camera
+     (tests/test_kitti_euroc.py's scene and 18-degree arc; its gates: >= 8
+     frames tracked, as many KITTI rows, the first pose the identity to
+     1e-6) and run_mono_euroc over 24 frames rendered with the EuRoC
+     camera (>= 8 tracked; its ATE printed: the renderer applies no lens
+     distortion), undistort_points of one EuRoC frame's keypoints on the
+     card against the CPU to 1e-5 px, and both FAST kernel entries bit-exact
+     at the KITTI00_02 and EuRoC shapes (32 frames, 8 levels), timed;
+     fast_nms_tile_max must be launched on each driver's run;
+ 13. print the host-clock time of each between-chunk pass (after a
      synchronise; medians where a pass repeats) and its share of a chunk,
      the card's name and power limit, one JSON line describing every
      kernel, and last the JSON result line.
+
+Every frame the script renders (the arc, the tilted run, the drivers'
+KITTI and EuRoC frames) is queued on one process pool when it starts: the
+arc first, the rest rendering on the host's cores while the card runs the
+earlier phases.
 
 Needs a CUDA device and the rest of the repository beside this file.
 """
@@ -295,25 +321,109 @@ CIRCUIT_CAPACITY = dict(max_keyframes=128, max_points=8192, max_features=512,
                         local_ba_points=2048)
 CHECKPOINT_TOL = 1e-5
 
-_SCENE = None
+# the command-line drivers' phase (phase 12). The reference's own
+# run_mono_tum on the same TUM directory, on the CPU
+# (reference_ate_spread.py --cli): the ATE limit is the EAO per-run limit
+# unless that run reads over 0.185 m, and then 1.5 times its reading.
+STAMP0 = 1000.0
+CLI_MIN_TRACKED = 0.9
+REFERENCE_CLI = {"init_frame": 4, "tracked": 164, "total": 164, "ate_m": 0.2590,
+                 "object_classes": [56, 62, 73], "keyframes": 34}
+CLI_ATE_LIMIT_M = (EAO_ATE_LIMIT_M if REFERENCE_CLI["ate_m"] <= 0.185
+                   else 1.5 * REFERENCE_CLI["ate_m"])
+DRIVER_FRAMES = 24
+DRIVER_SWEEP_DEG = 18.0
+DRIVER_MIN_TRACKED = 8
+KITTI_IDENTITY_TOL = 1e-6
+UNDISTORT_TOL_PX = 1e-5
+EUROC_STAMP0 = 1403636579000000000
+
+_SCENES: dict = {}
+RENDERS = None               # the script's render pool (Renders), while main runs
 
 
-def _set_scene(scene) -> None:
-    global _SCENE
-    _SCENE = scene
+def _set_scenes(scenes: dict) -> None:
+    """Pool initializer: the scenes, and a lower priority than the main
+    process, whose host loop drives the card while the pool renders."""
+    _SCENES.update(scenes)
+    os.nice(10)
 
 
-def _render(T_cw):
-    from eao_slam_torch.geometry.camera import TUM3
+def _render(task):
+    """Pool worker: (scene name, camera, T_cw) -> the rendered grey image."""
     from eao_slam_torch.io.synthetic import render_image
 
-    return render_image(_SCENE, TUM3, T_cw)
+    name, cam, T_cw = task
+    return render_image(_SCENES[name], cam, T_cw)
 
 
 def bench_scene():
     from eao_slam_torch.io.synthetic import make_room_scene
 
     return make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
+
+
+def driver_scene():
+    """The KITTI and EuRoC drivers' room (tests/test_kitti_euroc.py's)."""
+    from eao_slam_torch.io.synthetic import make_room_scene
+
+    return make_room_scene(seed=5, n_landmarks=80, n_objects=0)
+
+
+def _pool():
+    return multiprocessing.get_context("spawn").Pool(
+        min(8, os.cpu_count() or 1), initializer=_set_scenes,
+        initargs=({"bench": bench_scene(), "drivers": driver_scene()},))
+
+
+class Renders:
+    """One process pool for every frame the script renders: the jobs are
+    queued in order when it starts (the arc first), so the later ones render
+    on the host's cores while the card runs the earlier phases. ``get(name)``
+    waits for one job's frames."""
+
+    def __init__(self, jobs: dict):
+        self.t0 = time.perf_counter()
+        self.pool = _pool()
+        self.done = {}
+        self.pending = {name: self.pool.map_async(
+            _render, tasks, callback=lambda _, name=name: self._finished(name))
+            for name, tasks in jobs.items()}
+
+    def _finished(self, name: str) -> None:
+        self.done[name] = time.perf_counter() - self.t0
+
+    def get(self, name: str) -> np.ndarray:
+        t = time.perf_counter()
+        images = np.stack(self.pending.pop(name).get())
+        print(f"render pool: {name} ({len(images)} frames) rendered {self.done[name]:.1f} s "
+              f"after the pool started; waited {time.perf_counter() - t:.1f} s for it")
+        return images
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def rendered(name: str, tasks: list) -> np.ndarray:
+    """The frames of ``tasks`` ((scene name, camera, T_cw) each): the render
+    pool's job ``name`` while main runs, else rendered now."""
+    if RENDERS is not None and name in RENDERS.pending:
+        return RENDERS.get(name)
+    t0 = time.perf_counter()
+    with _pool() as pool:
+        images = np.stack(pool.map(_render, tasks))
+    print(f"rendered {len(images)} frames ({name}) in {time.perf_counter() - t0:.1f} s")
+    return images
+
+
+def pool_map(fn, tasks: list) -> list:
+    """``fn`` over ``tasks`` in the render pool (a pool of its own when
+    main is not running)."""
+    if RENDERS is not None:
+        return RENDERS.pool.map(fn, tasks)
+    with _pool() as pool:
+        return pool.map(fn, tasks)
 
 
 def bench_boxes(gt) -> list:
@@ -326,20 +436,43 @@ def bench_boxes(gt) -> list:
     return [project_boxes(scene, TUM3, T, N_BOXES) for T in gt]
 
 
+def arc():
+    from eao_slam_torch.io.synthetic import make_arc_trajectory
+
+    return make_arc_trajectory(n_frames=N_FRAMES, sweep_deg=60.0)
+
+
+def tilted_arc(gt):
+    """The ground-alignment run's poses: the arc's first TILT_FRAMES with
+    every camera tilted by TILT_DEG."""
+    Q = _tilt(*TILT_DEG)
+    return np.stack([np.concatenate([T[:3, :3] @ Q.T, T[:3, 3:4]], 1) for T in gt[:TILT_FRAMES]])
+
+
+def driver_arc():
+    from eao_slam_torch.io.synthetic import make_arc_trajectory
+
+    return make_arc_trajectory(n_frames=DRIVER_FRAMES, sweep_deg=DRIVER_SWEEP_DEG)
+
+
+def render_jobs() -> dict:
+    """Every render job of the script, in the order the phases need them."""
+    from eao_slam_torch.geometry.camera import EUROC, KITTI00_02, TUM3
+
+    _, gt = arc()
+    _, gt_d = driver_arc()
+    return {"arc": [("bench", TUM3, T) for T in gt],
+            "tilted": [("bench", TUM3, T) for T in tilted_arc(gt)],
+            "kitti": [("drivers", KITTI00_02, T) for T in gt_d],
+            "euroc": [("drivers", EUROC, T) for T in gt_d]}
+
+
 def render_sequence(n_frames: int = None):
     """The bench arc (or its first n_frames), rendered with the port's own
     synthetic renderer."""
-    from eao_slam_torch.io.synthetic import make_arc_trajectory
-
-    scene = bench_scene()
-    ts, gt = make_arc_trajectory(n_frames=N_FRAMES, sweep_deg=60.0)
-    ts, gt = ts[:n_frames], gt[:n_frames]
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(
-            min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(scene,)) as pool:
-        images = np.stack(pool.map(_render, list(gt)))
-    print(f"rendered {len(images)} frames in {time.perf_counter() - t0:.1f} s")
-    return ts, gt, images
+    ts, gt = arc()
+    images = rendered("arc", render_jobs()["arc"])
+    return ts[:n_frames], gt[:n_frames], images[:n_frames]
 
 
 def card_line() -> str:
@@ -874,13 +1007,8 @@ def run_ground_alignment(ts, gt) -> dict:
     from eao_slam_torch.io.trajectory import object_yaws, save_tum
     from eao_slam_torch.system import System
 
-    Q = _tilt(*TILT_DEG)
-    gt_t = np.stack([np.concatenate([T[:3, :3] @ Q.T, T[:3, 3:4]], 1) for T in gt[:TILT_FRAMES]])
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(
-            min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(bench_scene(),)) as pool:
-        images = np.stack(pool.map(_render, list(gt_t)))
-    t_render = time.perf_counter() - t0
+    gt_t = tilted_arc(gt)
+    images = rendered("tilted", render_jobs()["tilted"])
     scene = bench_scene()
     boxes = [project_boxes(scene, TUM3, T, N_BOXES) for T in gt_t]
     cfg = tum3_config(DemoFlag.LINE_IFOREST).replace(capacity=CapacityConfig(
@@ -909,7 +1037,7 @@ def run_ground_alignment(ts, gt) -> dict:
     yaws = object_yaws(tab)
     tracked = len(sysm.frame_trajectory()[0])
     print(f"ground alignment: {TILT_FRAMES} frames tilted by roll {TILT_DEG[0]} and pitch "
-          f"{TILT_DEG[1]} deg (rendered in {t_render:.1f} s), {tracked} tracked; first keyframe "
+          f"{TILT_DEG[1]} deg, {tracked} tracked; first keyframe "
           f"(frame {i0}) against its true T_cw: max |diff| {err:.3g} after the bootstrap, "
           f"{err_end:.3g} at the end; yaws "
           + ", ".join(f"{o['cls']}: {o['yaw_deg']:.2f} deg ({o['votes']:.0f} votes)" for o in yaws))
@@ -1156,7 +1284,7 @@ def _render_depth(T_cw):
     from eao_slam_torch.geometry.camera import TUM3
     from eao_slam_torch.io.synthetic import depth_cloud
 
-    return depth_cloud(_SCENE, TUM3, T_cw[None, 1], T_cw[0])
+    return depth_cloud(_SCENES["bench"], TUM3, T_cw[None, 1], T_cw[0])
 
 
 def cloud_quality(sysm, ts, gt) -> dict:
@@ -1181,10 +1309,7 @@ def cloud_quality(sysm, ts, gt) -> dict:
     T_ref = gt[int(np.argmin(np.abs(ts - kf_ts[first])))]
     slots = sysm._semidense_slots
     frames = [int(np.argmin(np.abs(ts - kf_ts[s]))) for s in slots]
-    with multiprocessing.get_context("spawn").Pool(
-            min(8, os.cpu_count() or 1), initializer=_set_scene, initargs=(bench_scene(),)) as pool:
-        truth = np.concatenate(pool.map(_render_depth, [np.stack([T_ref, gt[f]])
-                                                         for f in frames]))
+    truth = np.concatenate(pool_map(_render_depth, [np.stack([T_ref, gt[f]]) for f in frames]))
     est_c = centers(m.kf_pose.cpu().numpy()[slots])
     true_c = centers(gt[frames]) @ T_ref[:3, :3].T + T_ref[:3, 3]
     init = umeyama_alignment(est_c, true_c, with_scale=True)
@@ -2161,6 +2286,213 @@ def run_chunked_localization(ts, gt, images) -> dict:
             "resume_max_diff": diff}
 
 
+def write_tum_sequence(d: str, ts, gt, images, boxes) -> None:
+    """A TUM sequence directory: rgb/<stamp>.png (viz.raster.save_png),
+    rgb.txt, groundtruth.txt (io.trajectory.save_tum of the true poses) and
+    yolo_txts/<stamp>.txt, each box as ``class x y w h score`` (the
+    offline-YOLO format, as tests/test_cli.py writes it); stamps are
+    STAMP0 + ts."""
+    from eao_slam_torch.io.trajectory import save_tum
+    from eao_slam_torch.viz.raster import save_png
+
+    os.makedirs(os.path.join(d, "rgb"))
+    os.makedirs(os.path.join(d, "yolo_txts"))
+    rows = []
+    for k, img in enumerate(images):
+        stamp = f"{STAMP0 + ts[k]:.6f}"
+        save_png(os.path.join(d, "rgb", f"{stamp}.png"), np.asarray(img))
+        rows.append(f"{stamp} rgb/{stamp}.png")
+        bxs, cls, score, valid = (np.asarray(x) for x in boxes[k])
+        with open(os.path.join(d, "yolo_txts", f"{stamp}.txt"), "w") as f:
+            for b in np.flatnonzero(valid):
+                x, y, w, h = bxs[b]
+                f.write(f"{cls[b]} {x:.1f} {y:.1f} {w:.1f} {h:.1f} {score[b]:.2f}\n")
+    with open(os.path.join(d, "rgb.txt"), "w") as f:
+        f.write("# timestamp filename\n" + "\n".join(rows) + "\n")
+    save_tum(os.path.join(d, "groundtruth.txt"), STAMP0 + np.asarray(ts), gt)
+
+
+EXPORTS = {"keyframes": "KeyFrameTrajectory.txt", "frames_tracked": "FrameTrajectory.txt",
+           "objects": "objects.json", "semidense_points": "semidense.obj",
+           "lines3d": "lines3d.obj", "mesh_tris": "mesh.obj"}
+
+
+def cli_figures(out: str, stats: dict, ts, gt) -> dict:
+    """A mono_tum run's figures from its exports (either package's): each
+    export parsed with the port's loaders (written exactly when its count is
+    above 0, as the System's save_* calls do), the frame that initialized,
+    the share tracked after it, the sim3 ATE of FrameTrajectory.txt against
+    the truth, the live objects' classes."""
+    from eao_slam_torch.evaluation import load_cloud
+    from eao_slam_torch.io.trajectory import ate_rmse
+    from eao_slam_torch.io.tum import load_groundtruth
+
+    parsed = {}
+    for key, name in EXPORTS.items():
+        path = os.path.join(out, name)
+        if name.endswith(".txt"):
+            parsed[key] = len(load_groundtruth(path).timestamps)
+        elif name.endswith(".json"):
+            with open(path) as f:
+                parsed[key] = len(json.load(f))
+        elif os.path.exists(path):
+            parsed[key] = len(load_cloud(path))
+        else:
+            parsed[key] = 0
+    traj = load_groundtruth(os.path.join(out, EXPORTS["frames_tracked"]))
+    idx = np.array([int(np.argmin(np.abs(STAMP0 + ts - t))) for t in traj.timestamps])
+    init = int(idx[0])
+    with open(os.path.join(out, EXPORTS["objects"])) as f:
+        classes = sorted(o["class"] for o in json.load(f))
+    return {"parsed": parsed, "init_frame": init, "tracked": len(idx),
+            "total": len(ts) - init, "tracked_share": len(idx) / (len(ts) - init),
+            "ate_m": float(ate_rmse(traj.t_wc, centers(gt[idx]), with_scale=True)),
+            "object_classes": classes}
+
+
+def check_cli(fig: dict, stats: dict) -> None:
+    scene_classes = set(int(c) for c in bench_scene().obj_classes)
+    for key, name in EXPORTS.items():
+        got, want = fig["parsed"][key], stats[key]
+        # the obj files hold a vertex per point, two per segment, three per triangle
+        if (got != want) if key not in ("lines3d", "mesh_tris") else ((got > 0) != (want > 0)):
+            raise AssertionError(f"mono_tum: {name} parses to {got} rows, the run reported {want}")
+    if fig["tracked_share"] < CLI_MIN_TRACKED:
+        raise AssertionError(f"mono_tum: {fig['tracked']} of {fig['total']} frames tracked "
+                             f"after initialization")
+    if len(fig["object_classes"]) < MIN_OBJECTS or not scene_classes <= set(fig["object_classes"]):
+        raise AssertionError(f"mono_tum: objects {fig['object_classes']}")
+    if not fig["ate_m"] < CLI_ATE_LIMIT_M:
+        raise AssertionError(f"mono_tum: sim3 ATE {fig['ate_m']:.4f} m >= {CLI_ATE_LIMIT_M:.4f} m")
+
+
+MONO_TUM_CODE = ("import json, sys\n"
+                 "from eao_slam_torch import cli\n"
+                 "from eao_slam_torch.ops import fast_nms\n"
+                 "rc = cli.main(sys.argv[1:])\n"
+                 "print(json.dumps({'launches': fast_nms.launches}))\n"
+                 "sys.exit(rc)\n")
+
+
+def run_cli(ts, gt, images, clock_hz: float) -> dict:
+    """The command-line drivers (the module docstring's phase 12)."""
+    import tempfile
+
+    import torch
+
+    from eao_slam_torch.cli import run_mono_euroc, run_mono_kitti
+    from eao_slam_torch.geometry.camera import EUROC, TUM3
+    from eao_slam_torch.geometry.camera import undistort_points
+    from eao_slam_torch.io.trajectory import ate_rmse, load_kitti_poses
+    from eao_slam_torch.io.tum import load_groundtruth
+    from eao_slam_torch.ops import fast_nms
+    from eao_slam_torch.ops.image import build_pyramid
+    from eao_slam_torch.ops.orb import extract_orb
+    from eao_slam_torch.viz.raster import save_png
+
+    t_phase = time.perf_counter()
+    out = {}
+    jobs = render_jobs()
+    kitti_imgs = rendered("kitti", jobs["kitti"])
+    euroc_imgs = rendered("euroc", jobs["euroc"])
+    ts_d, gt_d = driver_arc()
+    with tempfile.TemporaryDirectory() as d:
+        # mono_tum, a subprocess on the card: cli.main as `python -m
+        # eao_slam_torch.cli` runs it, with the FAST kernel's launches after it
+        seq, res = os.path.join(d, "tum"), os.path.join(d, "tum_out")
+        t0 = time.perf_counter()
+        write_tum_sequence(seq, ts, gt, images, bench_boxes(gt))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", MONO_TUM_CODE, "mono_tum", "EAO", seq, res],
+                              cwd=HERE, capture_output=True, text=True, timeout=900)
+        t_run = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"mono_tum exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        stats, launches = json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+        fig = cli_figures(res, stats, ts, gt)
+        print(f"mono_tum EAO ({len(images)} frames written in {t_write:.1f} s; the run "
+              f"{t_run:.1f} s with the process's start): loader backend "
+              f"{stats['loader_backend']}; initialized at frame {fig['init_frame']}, "
+              f"{fig['tracked']}/{fig['total']} tracked after it, sim3 ATE {fig['ate_m']:.4f} m "
+              f"(limit {CLI_ATE_LIMIT_M:.4f} m), objects {fig['object_classes']}, keyframes "
+              f"{stats['keyframes']}; exports {fig['parsed']}; launches {launches}; "
+              f"the reference's run_mono_tum on this directory, on the CPU: {REFERENCE_CLI}")
+        check_cli(fig, stats)
+        if launches["fast_nms_tile_max"] <= 0:
+            raise AssertionError("mono_tum never launched fast_nms_tile_max")
+        out["mono_tum"] = {**fig, "stats": stats, "launches": launches, "seconds": t_run,
+                           "reference": REFERENCE_CLI}
+
+        # mono_kitti, in this process
+        kseq = os.path.join(d, "kitti", "00")
+        os.makedirs(os.path.join(kseq, "image_2"))
+        with open(os.path.join(kseq, "times.txt"), "w") as f:
+            for i in range(DRIVER_FRAMES):
+                save_png(os.path.join(kseq, "image_2", "%06d.png" % i), kitti_imgs[i])
+                f.write(f"{ts_d[i]:.6f}\n")
+        fast_nms.reset_launches()
+        t0 = time.perf_counter()
+        kstats = run_mono_kitti("None", kseq, 0, os.path.join(d, "kitti_out"))
+        t_kitti = time.perf_counter() - t0
+        klaunch = dict(fast_nms.launches)
+        P = load_kitti_poses(os.path.join(d, "kitti_out", "CameraTrajectory.txt"))
+        first = float(np.abs(P[0] - np.eye(4)[:3]).max()) if len(P) else float("inf")
+        print(f"mono_kitti None (KITTI00_02, {DRIVER_FRAMES} frames, {t_kitti:.1f} s): "
+              f"{kstats['frames_tracked']} tracked, {kstats['kitti_rows']} KITTI rows, first pose "
+              f"{first:.3g} from the identity; loader backend {kstats['loader_backend']}; "
+              f"launches {klaunch}")
+        if (kstats["frames_tracked"] < DRIVER_MIN_TRACKED
+                or kstats["kitti_rows"] != kstats["frames_tracked"]
+                or not first <= KITTI_IDENTITY_TOL or klaunch["fast_nms_tile_max"] <= 0):
+            raise AssertionError(f"mono_kitti: {kstats}, first pose {first:.3g}, {klaunch}")
+        out["mono_kitti"] = {"stats": kstats, "first_pose_max_abs_diff": first,
+                             "launches": klaunch, "seconds": t_kitti}
+
+        # mono_euroc, in this process; the renderer applies no distortion,
+        # so the ATE is printed, not gated
+        eseq = os.path.join(d, "euroc")
+        os.makedirs(eseq)
+        stamps = [EUROC_STAMP0 + int(round(t * 1e9)) for t in ts_d]
+        for i in range(DRIVER_FRAMES):
+            save_png(os.path.join(eseq, f"{stamps[i]}.png"), euroc_imgs[i])
+        fast_nms.reset_launches()
+        t0 = time.perf_counter()
+        estats = run_mono_euroc("None", eseq, None, os.path.join(d, "euroc_out"))
+        t_euroc = time.perf_counter() - t0
+        elaunch = dict(fast_nms.launches)
+        traj = load_groundtruth(os.path.join(d, "euroc_out", "FrameTrajectory.txt"))
+        eidx = [int(np.argmin(np.abs(np.asarray(stamps) / 1e9 - t))) for t in traj.timestamps]
+        eate = (float(ate_rmse(traj.t_wc, centers(gt_d[eidx]), with_scale=True))
+                if len(eidx) >= 3 else None)
+        kp = extract_orb(torch.as_tensor(euroc_imgs[0], device="cuda").float()[None]).kp[0]
+        und = (undistort_points(EUROC, kp).cpu() - undistort_points(EUROC, kp.cpu())).abs().max()
+        und = float(und)
+        print(f"mono_euroc None (EuRoC camera, {DRIVER_FRAMES} frames, {t_euroc:.1f} s): "
+              f"{estats['frames_tracked']} tracked, sim3 ATE {eate} m (printed: the renderer "
+              f"applies no distortion); loader backend {estats['loader_backend']}; launches "
+              f"{elaunch}; undistort_points of frame 0's {kp.shape[0]} keypoints, card against "
+              f"CPU: max |diff| {und:.3g} px (limit {UNDISTORT_TOL_PX:g})")
+        if (estats["frames_tracked"] < DRIVER_MIN_TRACKED or not und <= UNDISTORT_TOL_PX
+                or elaunch["fast_nms_tile_max"] <= 0):
+            raise AssertionError(f"mono_euroc: {estats}, undistortion {und:.3g} px, {elaunch}")
+        out["mono_euroc"] = {"stats": estats, "ate_m": eate, "undistort_max_abs_px": und,
+                             "launches": elaunch, "seconds": t_euroc}
+
+    # the FAST kernel at the drivers' shapes: 32 rendered frames (the
+    # drivers' 24, then their first 8 again), 8 levels at 1.2
+    inputs = {}
+    for name, imgs in (("KITTI00_02", kitti_imgs), ("EuRoC", euroc_imgs)):
+        frames = torch.as_tensor(np.concatenate([imgs, imgs[:CHUNK - len(imgs)]]),
+                                 device="cuda").float()
+        inputs[name] = tuple(x.contiguous() for x in build_pyramid(frames, 8, 1.2))
+    out["kernels"] = check_fast_nms(inputs, border=19, clock_hz=clock_hz)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"the command-line drivers' phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2174,8 +2506,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    global RENDERS
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    RENDERS = Renders(render_jobs())
+    try:
+        return run_all(t_start)
+    finally:
+        RENDERS.close()
+        RENDERS = None
+
+
+def run_all(t_start: float) -> int:
+    import torch
+
+    from eao_slam_torch.ops import fast_nms
+
     ts, gt, images = render_sequence()
     card = card_line()
     clock_hz = sm_clock_hz()
@@ -2220,6 +2566,7 @@ def main() -> int:
     interactive = run_interactive(ts, gt, images)
     long_run = run_long(ts, gt, images)
     circuit = run_circuit()
+    drivers = run_cli(ts, gt, images, clock_hz)
     print(json.dumps({"between_chunk": {
         "main_path_passes": main_passes, "long_run": long_run, "circuit": circuit,
         "card": card}}))
@@ -2240,6 +2587,9 @@ def main() -> int:
             "launches_line_path": lines["launches"][name],
             "launches_full_path": full["launches"][name],
             "launches_interactive_path": interactive["launches"][name],
+            "launches_cli_mono_tum": drivers["mono_tum"]["launches"][name],
+            "launches_cli_mono_kitti": drivers["mono_kitti"]["launches"][name],
+            "launches_cli_mono_euroc": drivers["mono_euroc"]["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
@@ -2248,6 +2598,9 @@ def main() -> int:
             "library_ms": None,
             "rendered": r["by_input"]["rendered"],
             "one_rendered_frame": r["by_input"]["one rendered frame"],
+            "kitti00_02": drivers["kernels"][name]["by_input"]["KITTI00_02"],
+            "euroc": drivers["kernels"][name]["by_input"]["EuRoC"],
+            "max_abs_err_drivers": drivers["kernels"][name]["max_abs_err"],
             "sm_clock_mhz": clock_hz / 1e6,
         })
     print(json.dumps({"main_path": {
@@ -2261,6 +2614,7 @@ def main() -> int:
     print(json.dumps({"full": {k: v for k, v in full.items() if k != "launches"}, "card": card}))
     print(json.dumps({"interactive": {k: v for k, v in interactive.items() if k != "launches"},
                       "card": card}))
+    print(json.dumps({"cli": {k: v for k, v in drivers.items() if k != "kernels"}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
-from eao_slam_torch.geometry.camera import Camera, TUM3
+from eao_slam_torch.geometry.camera import EUROC, Camera, TUM3
 
 
 class DemoFlag(enum.Enum):
@@ -58,6 +58,13 @@ class DemoFlag(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class OrbConfig:
+    # the requested feature counts (online, at init). As in the reference,
+    # no front end reads them: every frame extracts capacity.max_features
+    # features (runtime/frame.frame_from_image, the chunk's extract_batch),
+    # so kitti_config's 2000 yields 1024 features a frame at the default
+    # capacity
+    n_features: int = 1024
+    n_features_init: int = 2048
     scale_factor: float = 1.2
     n_levels: int = 8
     fast_threshold: int = 20
@@ -157,3 +164,38 @@ def tum3_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
     if isinstance(flag, str):
         flag = DemoFlag(flag)
     return SystemConfig(camera=TUM3, flag=flag, **kw)
+
+
+def kitti_config(sequence: int | str = 0, flag: DemoFlag | str = DemoFlag.NONE,
+                 **kw) -> SystemConfig:
+    """KITTI odometry preset: the sequence's camera and the reference's
+    2000 requested ORB features (see ``OrbConfig.n_features``)."""
+    from eao_slam_torch.io.kitti import kitti_camera
+
+    if isinstance(flag, str):
+        flag = DemoFlag(flag)
+    kw.setdefault("orb", OrbConfig(n_features=2000))
+    return SystemConfig(camera=kitti_camera(sequence), flag=flag, **kw)
+
+
+def euroc_config(flag: DemoFlag | str = DemoFlag.NONE, **kw) -> SystemConfig:
+    """EuRoC MAV preset: its camera, whose radial-tangential distortion the
+    front end undoes on the keypoints."""
+    if isinstance(flag, str):
+        flag = DemoFlag(flag)
+    return SystemConfig(camera=EUROC, flag=flag, **kw)
+
+
+def tiny_profile_config() -> SystemConfig:
+    """The reference's 160x120, 128-feature, 4-level profile, in the
+    port's fields (the reference's also sets ``min_matches_motion`` and a
+    16 x 12 grid, which no tracker of either package reads)."""
+    cam = Camera(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120, fps=30.0)
+    return tum3_config().replace(
+        camera=cam,
+        orb=OrbConfig(n_features=128, n_features_init=256, n_levels=4),
+        tracking=TrackingConfig(min_init_matches=40, min_tracked_for_ok=15,
+                                min_matches_ref_kf=10, min_inliers_after_pose=8),
+        capacity=CapacityConfig(max_keyframes=16, max_points=1024, max_features=128,
+                                local_ba_points=256),
+    )

@@ -36,6 +36,17 @@ class Camera(NamedTuple):
 
 # TUM freiburg3 intrinsics (TUM3.yaml, zero distortion).
 TUM3 = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480, fps=30.0)
+# KITTI odometry rectified intrinsics (KITTI00-02.yaml, KITTI03.yaml, KITTI04-12.yaml).
+KITTI00_02 = Camera(718.856, 718.856, 607.1928, 185.2157,
+                    width=1241, height=376, fps=10.0)
+KITTI03 = Camera(721.5377, 721.5377, 609.5593, 172.854,
+                 width=1242, height=375, fps=10.0)
+KITTI04_12 = Camera(707.0912, 707.0912, 601.8873, 183.1104,
+                    width=1226, height=370, fps=10.0)
+# EuRoC MAV cam0 (EuRoC.yaml, radial-tangential distortion).
+EUROC = Camera(458.654, 457.296, 367.215, 248.375,
+               -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0,
+               752, 480, 20.0)
 
 
 def project(cam: Camera, xc: torch.Tensor) -> torch.Tensor:
@@ -56,11 +67,19 @@ def distort_normalized(cam: Camera, xn: torch.Tensor) -> torch.Tensor:
     return torch.stack([x * radial + dx, y * radial + dy], -1)
 
 
+def _ieee_div(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / v, correctly rounded on every device: CUDA divides by a host
+    scalar as a product with its reciprocal, an ulp away from the quotient
+    that the CPU (and the reference) computes."""
+    return x / torch.full_like(x, v)
+
+
 def undistort_points(cam: Camera, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Fixed-point inversion of the distortion (cv::undistortPoints)."""
     if not cam.has_distortion:
         return uv
-    xd = torch.stack([(uv[..., 0] - cam.cx) / cam.fx, (uv[..., 1] - cam.cy) / cam.fy], -1)
+    xd = torch.stack([_ieee_div(uv[..., 0] - cam.cx, cam.fx),
+                      _ieee_div(uv[..., 1] - cam.cy, cam.fy)], -1)
     xn = xd
     for _ in range(iters):
         xn = xd - (distort_normalized(cam, xn) - xn)

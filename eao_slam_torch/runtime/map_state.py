@@ -73,3 +73,28 @@ def empty_map_state(cap: CapacityConfig, device) -> MapState:
         pt_object_id=full((P,), -1, i32),
         pt_obj_votes=full((P,), 0, i32),
     )
+
+
+def covisibility_counts(state: MapState) -> torch.Tensor:
+    """[K, K] int32 shared-point counts between live keyframes (the
+    covisibility graph, KeyFrame::UpdateConnections), as the product of
+    the 0/1 keyframe-point incidence with itself; the diagonal is zero."""
+    K = state.kf_pt_idx.shape[0]
+    P = state.pt_pos.shape[0]
+    inc = torch.zeros((K, P), dtype=torch.float32, device=state.pt_pos.device)
+    inc.scatter_reduce_(1, state.kf_pt_idx.clamp(0, P - 1).long(),
+                        (state.kf_pt_idx >= 0).float(), reduce="amax")
+    inc = inc * state.pt_valid[None, :].float()
+    kv = state.kf_valid.float()
+    C = ((inc @ inc.T) * kv[None, :] * kv[:, None]).to(torch.int32)
+    return C - torch.diag(torch.diag(C))
+
+
+def point_observation_counts(state: MapState) -> torch.Tensor:
+    """[P] int32: the live keyframes observing each point, from the
+    feature-to-point table (MapPoint::Observations())."""
+    P = state.pt_pos.shape[0]
+    obs = (state.kf_pt_idx >= 0) & state.kf_valid[:, None] & state.kf_kp_valid
+    pt = state.kf_pt_idx.clamp(0, P - 1).long().reshape(-1)
+    return torch.zeros(P, dtype=torch.int32, device=pt.device).index_add_(
+        0, pt, obs.reshape(-1).to(torch.int32))

@@ -82,7 +82,17 @@ def _cost_only(cam, prob, poses, points):
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
-    """Closed-form (adjugate) batched 3x3 inverse."""
+    """Closed-form (adjugate) batched 3x3 inverse, in float32 as the
+    reference forms it.
+
+    A point close to a camera has Hessian entries near 1e13, and then the
+    determinant's terms (a * A11 near 6e38) overflow float32: taken one by
+    one, as eager torch takes them, they give inf - inf and a NaN block, and
+    one NaN block made every LM step of the window non-finite, so the BA did
+    nothing. The reference's jitted float32 gets an infinite determinant
+    there, so a zero inverse: the point is frozen. Where a term overflows
+    the port gives that zero block too; elsewhere the float32 arithmetic is
+    unchanged."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -91,6 +101,7 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
     A31, A32, A33 = d * h - e * g, b * g - a * h, a * e - b * d
     det = a * A11 + b * A21 + c * A31
     inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+    inv_det = torch.where(torch.isfinite(det), inv_det, torch.zeros_like(det))
     rows = torch.stack([torch.stack([A11, A12, A13], -1),
                         torch.stack([A21, A22, A23], -1),
                         torch.stack([A31, A32, A33], -1)], -2)

@@ -3,6 +3,7 @@
     python3 port_ate_spread.py [--flag EAO|LineAndiForest] [--seeds 7 8 9 ...] [--device cpu]
     python3 port_ate_spread.py --flag LineAndiForest --seeds 5 --record-yaw DIR
     python3 port_ate_spread.py --interactive [--flag EAO] [--seeds ...] [--device cpu]
+    python3 port_ate_spread.py --interactive --device cpu --replay-init DIR [--seeds ...]
 
 The counterpart of reference_ate_spread.py for the port: chip_smoke.py's
 main path (geometry mode, or with ``--flag EAO`` its EAO phase and with
@@ -26,8 +27,16 @@ every call to the host, so a recorded run's fps is not the program's.
 chip_smoke.py's ``drive_interactive``, the protocol of
 ``reference_ate_spread.py --interactive``): per seed the frame that
 initialized, the frames tracked after it, the sim3 ATE of every tracked
-frame (and the objects with ``--flag EAO``), then the median and the
-worst.
+frame (and the objects with ``--flag EAO``), the live points at the end,
+the points each keyframe's triangulations added (``tri_points_per_kf``)
+and each two-view initialization attempt (``init_attempts``: frame,
+success, points), then the median and the worst. ``--replay-init DIR``
+feeds the reference's hypothesis draws, recorded by
+``reference_ate_spread.py --interactive --record-init DIR``, into the
+port's ``initialize_two_view`` (its ``hyp_idx``) attempt by attempt, and
+stops with an error where an attempt's valid-match mask differs from the
+reference's: the port with the reference's draws, to tell the
+initializer's random draw from the rest of the tracker.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import numpy as np
 
 import chip_smoke
 
+INIT_DRAWS = "init_draws_seed{}.npz"
 TABLE_FIELDS = ("valid", "cls", "center", "cub_min", "cub_max", "yaw", "yaw_hist")
 CALL_ARGS = ("targets", "boxes", "T_cw", "lines", "line_valid")
 
@@ -86,6 +96,97 @@ class YawCalls:
                                      for k in self.calls[0]})
 
 
+class InitAttempts:
+    """While entered, a MonoTracker module's name for ``initialize_two_view``
+    (either package's ``runtime.tracker``) points to a wrapper that notes
+    each attempt's frame, success and initial points in ``attempts``. With
+    ``replay`` (the arrays of a ``reference_ate_spread.py --record-init``
+    file) the port's attempts take the reference's hypothesis indices, and
+    an attempt whose valid-match mask differs from the reference's raises.
+    ``frame`` is set by the caller before each frame."""
+
+    def __init__(self, module, replay=None, draw=None):
+        self.module, self.replay, self.draw = module, replay, draw
+        self.attempts, self.frame = [], -1
+
+    def __enter__(self):
+        fn = self.saved = self.module.initialize_two_view
+
+        def wrapped(cam, uv1, uv2, valid, *args, **kw):
+            a = len(self.attempts)
+            extra = {}
+            if self.draw is not None:         # the reference: keep its draw
+                extra["hyp_idx"] = self.draw(valid, args[0])
+                extra["ok"] = np.asarray(valid)
+            if self.replay is not None:       # the port: take the reference's
+                import torch
+
+                if a >= len(self.replay["ok"]):
+                    raise RuntimeError(f"init attempt {a} at frame {self.frame}: the "
+                                       f"reference made only {len(self.replay['ok'])}")
+                ok = valid.cpu().numpy()
+                if not np.array_equal(ok, self.replay["ok"][a]):
+                    raise RuntimeError(
+                        f"init attempt {a} at frame {self.frame}: the valid-match mask differs "
+                        f"from the reference's in {int((ok != self.replay['ok'][a]).sum())} rows")
+                kw["hyp_idx"] = torch.as_tensor(self.replay["hyp_idx"][a], device=valid.device)
+            res = fn(cam, uv1, uv2, valid, *args, **kw)
+            self.attempts.append({"frame": self.frame, "success": bool(res.success),
+                                  "points": int(chip_smoke._np(res.point_ok).sum()),
+                                  **extra})
+            return res
+
+        self.module.initialize_two_view = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.initialize_two_view = self.saved
+
+    def summary(self) -> list:
+        return [{k: a[k] for k in ("frame", "success", "points")} for a in self.attempts]
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, hyp_idx=np.stack([a["hyp_idx"] for a in self.attempts]),
+                            ok=np.stack([a["ok"] for a in self.attempts]),
+                            frame=np.array([a["frame"] for a in self.attempts]),
+                            success=np.array([a["success"] for a in self.attempts]),
+                            points=np.array([a["points"] for a in self.attempts]))
+
+
+def count_triangulations(tracker) -> list:
+    """Wrap a MonoTracker's (either package's) ``_triangulate_new_points``
+    so that each call appends (keyframe slot, points added) to the list it
+    returns."""
+    calls = []
+    fn = tracker._triangulate_new_points
+
+    def counted(slot, nb):
+        n0 = int(tracker.pt_valid_host.sum())
+        fn(slot, nb)
+        calls.append((int(slot), int(tracker.pt_valid_host.sum()) - n0))
+
+    tracker._triangulate_new_points = counted
+    return calls
+
+
+def drive_recorded(sysm, ts, gt, images, boxes, attempts: InitAttempts) -> dict:
+    """chip_smoke.drive_interactive with the init attempts and the points
+    each keyframe's triangulations added."""
+    tri = count_triangulations(sysm.tracker)
+    step = sysm.track_monocular
+
+    def track(img, t, boxes=None):
+        attempts.frame += 1
+        return step(img, t, boxes=boxes)
+
+    sysm.track_monocular = track
+    r = chip_smoke.drive_interactive(sysm, ts, gt, images, boxes)
+    per_kf = {}
+    for slot, n in tri:
+        per_kf[slot] = per_kf.get(slot, 0) + n
+    return {**r, "tri_points_per_kf": list(per_kf.values()), "init_attempts": attempts.summary()}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, nargs="+", default=list(chip_smoke.SEEDS))
@@ -93,9 +194,13 @@ def main() -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--interactive", action="store_true",
                    help="the interactive per-frame tracker, System(chunked=False)")
+    p.add_argument("--replay-init", metavar="DIR",
+                   help="--interactive: the reference's init draws from DIR/" + INIT_DRAWS)
     p.add_argument("--record-yaw", metavar="DIR",
                    help="line mode: write every yaw call of each run to DIR")
     args = p.parse_args()
+    if args.replay_init and not args.interactive:
+        p.error("--replay-init needs --interactive")
     if args.record_yaw and args.flag != "LineAndiForest":
         p.error("--record-yaw needs --flag LineAndiForest")
     import torch
@@ -111,12 +216,18 @@ def main() -> int:
     runs = []
     for seed in args.seeds:
         if args.interactive:
+            from eao_slam_torch.runtime import tracker
             from eao_slam_torch.system import System
 
             sysm = System(chip_smoke.main_config(seed, boxes is not None, args.flag),
                           chunked=False, device=args.device)
-            r = {"seed": seed, "flag": args.flag, "interactive": True,
-                 **chip_smoke.drive_interactive(sysm, ts, gt, images, boxes)}
+            replay = None
+            if args.replay_init:
+                replay = dict(np.load(os.path.join(args.replay_init, INIT_DRAWS.format(seed))))
+            with InitAttempts(tracker, replay) as attempts:
+                r = {"seed": seed, "flag": args.flag, "interactive": True,
+                     "init_draws": "reference" if replay else "own",
+                     **drive_recorded(sysm, ts, gt, images, boxes, attempts)}
             runs.append(r)
             print(json.dumps(r), flush=True)
             continue

@@ -7,6 +7,10 @@
     JAX_PLATFORMS=cpu python reference_ate_spread.py --dense
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive [--flag EAO] [--modes] \
         --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --record-init DIR --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --port-orb --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --lockstep --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --cli
 
 Runs the reference package (eao_slam_tpu) as bench.py's headline mode
 does (``--flag None``, the default) or its EAO mode (``--flag EAO``, or
@@ -80,7 +84,38 @@ holds every live keyframe (and the objects in an object mode), then the
 median and the worst. With ``--modes`` each geometry run goes on through
 ``interactive_modes``: the kidnap (blank frames, then the frames from 40,
 relocalization within 5 frames and its error), localization mode over
-frames 60-91 and a reset. About 10 minutes a seed on one core.
+frames 60-91 and a reset. About 10 minutes a seed on one core. Each
+interactive run also prints the live points at the end, the points each
+keyframe's triangulations added and each two-view initialization attempt
+(frame, success, points; ``port_ate_spread.py``'s helpers).
+``--record-init DIR`` keeps, at every ``initialize_two_view`` call, the
+hypothesis indices the reference draws there (``jax.random.choice`` of
+``solvers/init2view.py`` on the key the tracker split for the call,
+recomputed in a jitted program of the same operations) with the
+valid-match mask they were drawn over, and writes them to
+``DIR/init_draws_seed<seed>.npz`` for ``port_ate_spread.py
+--replay-init``. ``--port-orb`` feeds the reference's MonoTracker the
+port's front end instead of its own: each frame's ORB features from
+``eao_slam_torch.runtime.frame.frame_from_image`` on the CPU (computed once
+for all seeds), through ``System.track_frame``; the reference's tracker on
+the port's features. ``--lockstep [--frames N]`` runs no spread: the
+reference tracks the first N frames (100 by default) of each seed's arc,
+and before every frame after initialization its state crosses to the
+port (``convert.mono_tracker_from_numpy``), which takes the same step from
+it on the reference's own Frame; per frame it prints whether each made a
+keyframe, the tracked points, the live points, the points the step
+created, the observations and the pose difference, then their totals:
+whether any tracker stage differs from one state along a whole run.
+
+``--cli`` runs the reference's ``mono_tum`` driver as chip_smoke.py's
+command-line phase runs the port's: the arc's frames (rendered by the
+reference) written as a TUM directory with its ground truth and the bench
+boxes as offline detections (``chip_smoke.write_tum_sequence``), then
+``eao_slam_tpu.cli.run_mono_tum("EAO", ...)``; it prints the figures
+chip_smoke.py gates on (``chip_smoke.cli_figures``: the frame that
+initialized, the share tracked after it, the sim3 ATE of
+FrameTrajectory.txt, the objects' classes, the exports) with the run's
+statistics and seconds. About 5 minutes on the CPU.
 
 This is the yardstick that chip_smoke.py's ATE gate is derived from: the
 tracker is chaotic (float noise in one triangulation changes later
@@ -191,13 +226,101 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
     return out
 
 
+def init_draw(valid, key):
+    """The hypothesis indices ``initialize_two_view`` draws from ``key``
+    over the valid matches (``solvers/init2view.py``, n_hyp 256)."""
+    import jax
+    import jax.numpy as jnp
+
+    p = valid.astype(jnp.float32) / jnp.maximum(jnp.sum(valid), 1)
+    return jax.random.choice(key, valid.shape[0], shape=(256, 8), p=p)
+
+
+def port_orb_frames(images) -> list:
+    """The port's front end on every image, on the CPU, as numpy arrays
+    (descriptors as uint32) for the reference's frame_from_arrays."""
+    import torch
+
+    from eao_slam_torch.config import CapacityConfig, tum3_config
+    from eao_slam_torch.runtime.frame import frame_from_image
+
+    cfg = tum3_config().replace(capacity=CapacityConfig(
+        max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048))
+    out = []
+    for img in images:
+        f = frame_from_image(cfg, img, torch.device("cpu"))
+        out.append({"kp": f.kp.numpy(), "desc": f.desc.numpy().view(np.uint32),
+                    "octave": f.octave.numpy(), "angle": f.angle.numpy(),
+                    "valid": f.valid.numpy()})
+    return out
+
+
+def lockstep_run(seed: int, images, ts, n_frames: int) -> dict:
+    """The reference and the port one step apart (see the module
+    docstring)."""
+    import copy
+
+    import torch
+
+    from eao_slam_torch.config import CapacityConfig as TC, tum3_config as tt
+    from eao_slam_torch.convert import (frame_from_numpy, mono_tracker_from_numpy,
+                                        mono_tracker_to_numpy)
+    from eao_slam_torch.runtime.tracker import MonoTracker as PortMono
+    from eao_slam_tpu.config import CapacityConfig, tum3_config
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.runtime.tracker import MonoTracker
+    from tests.torch_parity import jax_mono_numpy
+
+    cap = dict(max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048)
+    ref = MonoTracker(tum3_config().replace(capacity=CapacityConfig(**cap), seed=seed))
+    pcfg = tt().replace(capacity=TC(**cap), seed=seed)
+    keys = ("kf", "tracked", "points", "new", "observations")
+    steps = []
+    for k in range(n_frames):
+        fr = frame_from_image(ref.cfg, images[k].astype(np.float32))
+        before = jax_mono_numpy(ref) if ref.state == 2 else None
+        T = ref.track(fr, float(ts[k]))
+        if before is None:
+            continue
+        port = mono_tracker_from_numpy(copy.deepcopy(before), PortMono(pcfg, torch.device("cpu")))
+        Tp = port.track(frame_from_numpy({f: np.asarray(getattr(fr, f)) for f in fr._fields},
+                                         "cpu"), float(ts[k]))
+        row = {"frame": k}
+        for tag, d in (("ref", jax_mono_numpy(ref)), ("port", mono_tracker_to_numpy(port))):
+            kf = d["kf_slots"][-1] not in before["kf_slots"]
+            row[tag] = dict(zip(keys, (
+                kf, None if d["last_pt"] is None else int((np.asarray(d["last_pt"]) >= 0).sum()),
+                int(d["pt_valid_host"].sum()),
+                int((d["pt_valid_host"] & (d["pt_first_kf_host"] == d["kf_slots"][-1])).sum())
+                if kf else 0,
+                int((d["kf_pt_host"] >= 0).sum()))))
+        row["pose_diff"] = (None if T is None or Tp is None
+                            else float(np.abs(np.asarray(T) - np.asarray(Tp)).max()))
+        steps.append(row)
+        print(json.dumps(row), flush=True)
+    differ = [r["frame"] for r in steps if r["ref"] != r["port"]]
+    return {"seed": seed, "lockstep": True, "steps": len(steps),
+            "keyframe_steps": sum(r["ref"]["kf"] for r in steps),
+            "steps_whose_counts_differ": differ,
+            "max_pose_diff": max((r["pose_diff"] or 0.0) for r in steps),
+            "totals": {tag: {k: sum(int(r[tag][k] or 0) for r in steps) for k in keys}
+                       for tag in ("ref", "port")}}
+
+
 def interactive_run(seed: int, images, ts, gt, flag: str = "None", boxes=None,
-                    modes: bool = False) -> dict:
+                    modes: bool = False, record_init: str = None,
+                    port_frames: list = None) -> dict:
     """The interactive protocol on the reference (see the module
     docstring)."""
-    from chip_smoke import N_BOXES as BOXES, drive_interactive, interactive_modes
+    import os
+
+    import jax
+
+    from chip_smoke import N_BOXES as BOXES, interactive_modes
     from eao_slam_tpu.config import CapacityConfig, tum3_config
+    from eao_slam_tpu.runtime import tracker
     from eao_slam_tpu.system import System
+    from port_ate_spread import INIT_DRAWS, InitAttempts, drive_recorded
 
     objects = flag != "None"
     cap = CapacityConfig(max_keyframes=128, max_points=8192, max_features=1024,
@@ -207,8 +330,24 @@ def interactive_run(seed: int, images, ts, gt, flag: str = "None", boxes=None,
     per_frame = None
     if objects:
         per_frame = [tuple(np.asarray(b[k]) for b in boxes) for k in range(len(images))]
-    out = {"seed": seed, "flag": flag, "interactive": True,
-           **drive_interactive(sysm, ts, gt, images, per_frame)}
+    if port_frames is not None:
+        from eao_slam_tpu.runtime.frame import frame_from_arrays
+
+        k = iter(range(len(port_frames)))
+
+        def port_orb(img, t, boxes=None):
+            return sysm.track_frame(frame_from_arrays(sysm.cfg, **port_frames[next(k)]), t)
+
+        sysm.track_monocular = port_orb
+    draw = jax.jit(init_draw) if record_init else None
+    with InitAttempts(tracker, draw=draw) as attempts:
+        out = {"seed": seed, "flag": flag, "interactive": True,
+               "front_end": "port" if port_frames is not None else "reference",
+               **drive_recorded(sysm, ts, gt, images, per_frame, attempts)}
+    if record_init:
+        os.makedirs(record_init, exist_ok=True)
+        out["init_draws"] = os.path.join(record_init, INIT_DRAWS.format(seed))
+        attempts.save(out["init_draws"])
     if modes:
         out["modes"] = interactive_modes(sysm, ts, gt, images)
     return out
@@ -374,6 +513,25 @@ def dense_run(scene, images, ts, gt, boxes) -> dict:
     return out
 
 
+def cli_run(images, ts, gt) -> dict:
+    """The reference's mono_tum on the arc as a TUM directory (see the
+    module docstring)."""
+    import tempfile
+    import time
+
+    import chip_smoke
+    from eao_slam_tpu.cli import run_mono_tum
+
+    with tempfile.TemporaryDirectory() as d:
+        seq, out = f"{d}/tum", f"{d}/out"
+        chip_smoke.write_tum_sequence(seq, ts, gt, images, chip_smoke.bench_boxes(gt))
+        t0 = time.perf_counter()
+        stats = run_mono_tum("EAO", seq, out)
+        seconds = time.perf_counter() - t0
+        fig = chip_smoke.cli_figures(out, stats, ts, gt)
+    return {"cli": "mono_tum EAO", **fig, "stats": stats, "seconds": seconds}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[12345, 1, 2, 3, 4, 5, 6])
@@ -387,6 +545,15 @@ def main() -> None:
                    help="bench.py's dense protocol in FULL mode, with the cloud's quality")
     p.add_argument("--interactive", action="store_true",
                    help="the interactive per-frame tracker, System(chunked=False)")
+    p.add_argument("--port-orb", action="store_true",
+                   help="with --interactive: the reference's tracker on the port's ORB features")
+    p.add_argument("--lockstep", action="store_true",
+                   help="with --interactive: the port one step from the reference's state")
+    p.add_argument("--frames", type=int, default=100, help="--lockstep: frames to run")
+    p.add_argument("--cli", action="store_true",
+                   help="the reference's mono_tum driver on the arc as a TUM directory")
+    p.add_argument("--record-init", metavar="DIR",
+                   help="with --interactive: write each seed's init draws to DIR")
     p.add_argument("--modes", action="store_true",
                    help="with --interactive: kidnap, localization mode and reset after the pass")
     args = p.parse_args()
@@ -415,14 +582,23 @@ def main() -> None:
         print(json.dumps(dense_run(scene, images, ts, gt, boxes)), flush=True)
         return
     images = np.stack([render_image(scene, TUM3, T) for T in gt])
+    if args.cli:
+        print(json.dumps(cli_run(images, ts, gt)), flush=True)
+        return
     boxes = None
     if args.flag != "None":
         per_frame = [project_boxes(scene, TUM3, T, N_BOXES) for T in gt]
         boxes = tuple(np.stack([np.asarray(b[k]) for b in per_frame]) for k in range(4))
+    if args.lockstep:
+        for seed in args.seeds:
+            print(json.dumps(lockstep_run(seed, images, ts, args.frames)), flush=True)
+        return
+    port_frames = port_orb_frames(images) if args.port_orb else None
     runs = []
     for seed in args.seeds:
         if args.interactive:
-            r = interactive_run(seed, images, ts, gt, args.flag, boxes, args.modes)
+            r = interactive_run(seed, images, ts, gt, args.flag, boxes, args.modes,
+                                args.record_init, port_frames)
         else:
             r = run(seed, images, ts, gt, args.flag, boxes, scene)
         runs.append(r)

@@ -32,7 +32,11 @@ def test_port_imports_no_jax():
         "'eao_slam_torch.dense.lines3d', 'eao_slam_torch.dense.mesh', "
         "'eao_slam_torch.evaluation', 'eao_slam_torch.ops.bow', "
         "'eao_slam_torch.runtime.keyframe_db', 'eao_slam_torch.runtime.tracker', "
-        "'eao_slam_torch.objects.cuboid_proposal'}\n"
+        "'eao_slam_torch.objects.cuboid_proposal', 'eao_slam_torch.cli', "
+        "'eao_slam_torch.io.kitti', 'eao_slam_torch.io.euroc', "
+        "'eao_slam_torch.io.native_loader', 'eao_slam_torch.utils.profiling', "
+        "'eao_slam_torch.viz.raster', 'eao_slam_torch.viz.frame_drawer', "
+        "'eao_slam_torch.viz.map_drawer', 'eao_slam_torch.viz.viewer'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -62,6 +66,22 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 System(_cfg(), chunked=chunked)
         assert System(_cfg(), chunked=chunked, device="cpu").device.type == "cpu"
+    # the command-line drivers build their System first: without a card and
+    # without device="cpu" they raise before reading anything; with a card
+    # they go on to the (missing) sequence
+    from eao_slam_torch import cli
+
+    missing = os.path.join(REPO, "no_such_sequence")
+    drivers = [lambda: cli.run_mono_tum("None", missing),
+               lambda: cli.run_mono_kitti("None", missing, 0),
+               lambda: cli.run_mono_euroc("None", missing)]
+    for run in drivers:
+        with pytest.raises(FileNotFoundError if torch.cuda.is_available() else RuntimeError,
+                           match=None if torch.cuda.is_available() else "device='cpu'"):
+            run()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.run_demo("None", 2)
 
 
 def test_default_configuration_builds():

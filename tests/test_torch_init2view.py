@@ -82,3 +82,55 @@ def test_generator_draws_only_valid_rows_and_is_seeded():
     assert a.shape == (64, 8)
     assert torch.equal(a, b)
     assert bool(valid[a].all())
+
+
+def test_rendered_pair_with_reference_draws():
+    """The bench arc's frames 0 and 4 (chip_smoke.py's interactive
+    protocol, seed 12345: the reference initializes from this pair at its
+    fourth attempt), rendered once: each package's ORB front end and
+    match_for_init, then the reference's initialize_two_view on the key its
+    tracker splits for that attempt, and the port's on the reference's
+    hypothesis indices. The valid-match masks, success and ``point_ok`` are
+    exact, the pose agrees to 1e-4 and the points to 2e-4 of their depth:
+    in the pair's frame the baseline is one unit and the points lie about
+    50 units away, so triangulation amplifies the pose's float32 difference
+    (measured 1.6e-4 at most)."""
+    from eao_slam_torch.config import CapacityConfig as TC, tum3_config as tt
+    from eao_slam_torch.io.synthetic import make_arc_trajectory, make_room_scene, render_image
+    from eao_slam_torch.runtime import tracking_kernels as ttk
+    from eao_slam_torch.runtime.frame import frame_from_image as t_frame
+    from eao_slam_tpu.config import CapacityConfig as JC, tum3_config as jt
+    from eao_slam_tpu.runtime import tracking_kernels as jtk
+    from eao_slam_tpu.runtime.frame import frame_from_image as j_frame
+
+    scene = make_room_scene(seed=5, n_landmarks=200, n_objects=3, obj_z_range=(4.0, 5.2))
+    _, gt = make_arc_trajectory(n_frames=168, sweep_deg=60.0)
+    imgs = [render_image(scene, TCAM, gt[k]) for k in (0, 4)]
+    cap = dict(max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048)
+    jc, tc = jt().replace(capacity=JC(**cap)), tt().replace(capacity=TC(**cap))
+    jf = [j_frame(jc, im.astype(np.float32)) for im in imgs]
+    tf = [t_frame(tc, im, "cpu") for im in imgs]
+    jidx, _, jok = jtk.match_for_init(*(getattr(jf[0], a) for a in ("kp", "desc", "angle", "valid")),
+                                      *(getattr(jf[1], a) for a in ("kp", "desc", "angle", "valid")))
+    tidx, _, tok = ttk.match_for_init(*(getattr(tf[0], a) for a in ("kp", "desc", "angle", "valid")),
+                                      *(getattr(tf[1], a) for a in ("kp", "desc", "angle", "valid")))
+    np.testing.assert_array_equal(n(tok), np.asarray(jok))
+    assert int(np.asarray(jok).sum()) >= jc.tracking.min_init_matches
+    key = jax.random.PRNGKey(12345)
+    for _ in range(4):                  # the tracker's split for its fourth attempt
+        key, sub = jax.random.split(key)
+    uv2 = jf[1].kp[jidx]
+    rj = jinit.initialize_two_view(JCAM, jf[0].kp, uv2, jok, sub,
+                                   min_triangulated=jc.tracking.min_init_matches // 2)
+    p = jok.astype(jnp.float32) / jnp.maximum(jnp.sum(jok), 1)
+    hyp = jax.random.choice(sub, jok.shape[0], shape=(256, 8), p=p)
+    rt = tinit.initialize_two_view(TCAM, tf[0].kp, tf[1].kp[tidx.long()], tok, hyp_idx=t(hyp),
+                                   min_triangulated=tc.tracking.min_init_matches // 2)
+    assert bool(rt.success) == bool(rj.success) is True
+    np.testing.assert_array_equal(n(rt.point_ok), np.asarray(rj.point_ok))
+    assert int(np.asarray(rj.point_ok).sum()) > 300
+    np.testing.assert_allclose(n(rt.T21), np.asarray(rj.T21), atol=1e-4)
+    ok = np.asarray(rj.point_ok)
+    want = np.asarray(rj.points)[ok]
+    rel = np.abs(n(rt.points)[ok] - want).max(1) / np.abs(want[:, 2])
+    assert rel.max() <= 2e-4, rel.max()
