@@ -36,12 +36,11 @@ def gxx_command(source: str = SOURCE, output: str = LIBRARY) -> list:
             "-lpng", "-ljpeg", "-lpthread"]
 
 
-def build(force: bool = False) -> str:
+def build() -> str:
     """Compile native/eao_loader.cpp into build/eao_slam_torch/ (rebuilt
     when the source is newer than the library); raises on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fresh = os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-    if fresh and not force:
+    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
         return LIBRARY
     if shutil.which("g++") is None:
         raise RuntimeError("g++ is not on the PATH")

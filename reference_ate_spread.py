@@ -11,6 +11,9 @@
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --port-orb --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --lockstep --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --cli
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --cli-test DIR [--scenes 4 5 ...] \
+        [--record-init DIR] --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --cli-test DIR --init-rates N [--scenes ...]
 
 Runs the reference package (eao_slam_tpu) as bench.py's headline mode
 does (``--flag None``, the default) or its EAO mode (``--flag EAO``, or
@@ -116,6 +119,21 @@ chip_smoke.py gates on (``chip_smoke.cli_figures``: the frame that
 initialized, the share tracked after it, the sim3 ATE of
 FrameTrajectory.txt, the objects' classes, the exports) with the run's
 statistics and seconds. About 5 minutes on the CPU.
+
+``--cli-test DIR`` runs the reference's ``run_mono_tum("EAO", ...)`` on
+tests/test_cli.py's 26-frame sequence per scene seed of ``--scenes`` and
+RANSAC seed of ``--seeds``, on the files ``port_ate_spread.py --cli-test
+DIR`` writes (``port_ate_spread.write_cli_test_sequence``: the two
+packages read the same PNGs), with the same figures per run
+(``port_ate_spread.cli_test_run``); ``--record-init DIR2`` writes each
+run's init draws to DIR2/``cli_init_draws_scene<S>_seed<R>.npz`` for
+``port_ate_spread.py --cli-test DIR --replay-init DIR2``. With
+``--init-rates N`` it runs no ``run_mono_tum``: per scene, each package's front end
+and ``match_for_init`` on frames 0 and k = 1, 2, 3, then N hypothesis
+draws of each attempt (keys 5000 to 5000 + N - 1): the reference's
+``initialize_two_view`` on its matches with the key, the port's on its own
+matches with the reference's draw for its mask (``init_draw``); it prints
+how many of the N succeed in each package.
 
 This is the yardstick that chip_smoke.py's ATE gate is derived from: the
 tracker is chaotic (float noise in one triangulation changes later
@@ -532,6 +550,87 @@ def cli_run(images, ts, gt) -> dict:
     return {"cli": "mono_tum EAO", **fig, "stats": stats, "seconds": seconds}
 
 
+def init_rates(root: str, scenes, n_keys: int) -> None:
+    """--cli-test --init-rates (see the module docstring)."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from eao_slam_torch.config import tum3_config as port_config
+    from eao_slam_torch.geometry.camera import TUM3 as PORT_TUM3
+    from eao_slam_torch.runtime import tracking_kernels as port_tk
+    from eao_slam_torch.runtime.frame import frame_from_image as port_frame
+    from eao_slam_torch.solvers import init2view as port_init
+    from eao_slam_tpu.config import tum3_config
+    from eao_slam_tpu.geometry.camera import TUM3
+    from eao_slam_tpu.io.native_loader import SequenceLoader
+    from eao_slam_tpu.io.tum import load_image_list
+    from eao_slam_tpu.runtime import tracking_kernels as tk
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.solvers import init2view
+    from port_ate_spread import write_cli_test_sequence
+
+    draw = jax.jit(init_draw)
+    jc, tc = tum3_config("EAO"), port_config("EAO")
+    min_tri = jc.tracking.min_init_matches // 2
+
+    def arrays(f):
+        return tuple(getattr(f, a) for a in ("kp", "desc", "angle", "valid"))
+
+    for scene in scenes:
+        seq = os.path.join(root, f"scene{scene}")
+        write_cli_test_sequence(seq, scene)
+        lst = load_image_list(os.path.join(seq, "rgb.txt"))
+        with SequenceLoader(seq, lst.filenames, lst.timestamps, 640, 480) as loader:
+            imgs = [np.asarray(img, np.float32) for _, _, img in loader][:4]
+        ref = [frame_from_image(jc, im) for im in imgs]
+        port = [port_frame(tc, im, "cpu") for im in imgs]
+        for k in (1, 2, 3):
+            jidx, _, jok = tk.match_for_init(*arrays(ref[0]), *arrays(ref[k]))
+            tidx, _, tok = port_tk.match_for_init(*arrays(port[0]), *arrays(port[k]))
+            tok_np = tok.numpy()
+            ok = [0, 0]
+            for s in range(n_keys):
+                key = jax.random.PRNGKey(5000 + s)
+                ok[0] += bool(init2view.initialize_two_view(
+                    TUM3, ref[0].kp, ref[k].kp[jidx], jok, key, min_triangulated=min_tri).success)
+                hyp = torch.as_tensor(np.asarray(draw(jnp.asarray(tok_np), key)))
+                ok[1] += bool(port_init.initialize_two_view(
+                    PORT_TUM3, port[0].kp, port[k].kp[tidx.long()], tok, hyp_idx=hyp,
+                    min_triangulated=min_tri).success)
+            print(json.dumps({"scene": scene, "frame": k, "matches": [int(np.sum(jok)),
+                              int(tok_np.sum())], "successes": ok, "of": n_keys}), flush=True)
+
+
+def cli_test(args) -> None:
+    """--cli-test: the reference's run_mono_tum per scene and RANSAC seed."""
+    import os
+
+    import jax
+
+    from eao_slam_tpu import cli
+    from eao_slam_tpu.runtime import tracker
+    from port_ate_spread import CLI_INIT_DRAWS, cli_test_run, write_cli_test_sequence
+
+    if args.init_rates:
+        init_rates(args.cli_test, args.scenes, args.init_rates)
+        return
+    draw = jax.jit(init_draw) if args.record_init else None
+    for scene in args.scenes:
+        seq = os.path.join(args.cli_test, f"scene{scene}")
+        ts, gt = write_cli_test_sequence(seq, scene)
+        for seed in args.seeds:
+            r, attempts = cli_test_run(cli, tracker, seq, ts, gt, seed, draw=draw)
+            if args.record_init:
+                os.makedirs(args.record_init, exist_ok=True)
+                r["init_draws"] = os.path.join(args.record_init,
+                                               CLI_INIT_DRAWS.format(scene, seed))
+                attempts.save(r["init_draws"])
+            print(json.dumps({"package": "reference", "scene": scene, **r}), flush=True)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[12345, 1, 2, 3, 4, 5, 6])
@@ -552,8 +651,15 @@ def main() -> None:
     p.add_argument("--frames", type=int, default=100, help="--lockstep: frames to run")
     p.add_argument("--cli", action="store_true",
                    help="the reference's mono_tum driver on the arc as a TUM directory")
+    p.add_argument("--cli-test", metavar="DIR",
+                   help="run_mono_tum on tests/test_cli.py's sequence, read from or written "
+                        "under DIR")
+    p.add_argument("--scenes", type=int, nargs="+", default=[4],
+                   help="--cli-test: the scene seeds")
+    p.add_argument("--init-rates", type=int, metavar="N",
+                   help="--cli-test: N init draws per attempt in each package, no run_mono_tum")
     p.add_argument("--record-init", metavar="DIR",
-                   help="with --interactive: write each seed's init draws to DIR")
+                   help="with --interactive or --cli-test: write each run's init draws to DIR")
     p.add_argument("--modes", action="store_true",
                    help="with --interactive: kidnap, localization mode and reset after the pass")
     args = p.parse_args()
@@ -564,6 +670,9 @@ def main() -> None:
     if args.replay_yaw:
         for path in args.replay_yaw:
             print(json.dumps(replay_yaw(path)), flush=True)
+        return
+    if args.cli_test:
+        cli_test(args)
         return
     from eao_slam_tpu.geometry.camera import TUM3
     from eao_slam_tpu.io.synthetic import (
