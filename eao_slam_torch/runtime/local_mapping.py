@@ -195,9 +195,12 @@ class LocalBAResult(NamedTuple):
 
 def run_local_ba(cam: Camera, state: MapState, window_slots: Sequence[int],
                  fixed_slots: Sequence[int], scale2: np.ndarray,
-                 max_points: int) -> LocalBAResult:
+                 max_points: int, solver=None) -> LocalBAResult:
     """Host-assembled compact BAProblem over a keyframe window, solved with
-    the 5 + 10 LM schedule (used by the two-keyframe bootstrap)."""
+    the 5 + 10 LM schedule (used by the two-keyframe bootstrap and the
+    global BA): ``solvers.ba.local_ba`` by default, or ``solver(cam, prob)
+    -> BAResult`` when given (a mesh-parallel tracker passes the
+    distributed solver here)."""
     dev = state.kf_pose.device
     W = len(window_slots)
     ws = np.asarray(window_slots, np.int64)
@@ -247,7 +250,7 @@ def run_local_ba(cam: Camera, state: MapState, window_slots: Sequence[int],
         cam_valid=torch.ones(W, dtype=torch.bool, device=dev),
         pt_valid=pt_valid,
     )
-    res: BAResult = local_ba(cam, prob)
+    res: BAResult = (solver or local_ba)(cam, prob)
     inlier = res.obs_inlier.reshape(W, F).cpu().numpy()
     pt_slots_padded = np.full(Pl, -1, np.int64)
     pt_slots_padded[: len(pt_slots)] = pt_slots

@@ -368,8 +368,11 @@ class LoopCloser:
 
     def _global_ba(self, tracker, fixed_slot: int):
         """RunGlobalBundleAdjustment over every valid keyframe, with the
-        full point capacity (not the windowed BA's budget)."""
+        full point capacity (not the windowed BA's budget), through the
+        tracker's ``ba_solver`` where it has one (a mesh-parallel chunked
+        tracker's distributed solver)."""
         slots = [s for s in tracker.kf_slots if tracker.kf_valid_host[s]]
         ba = run_local_ba(tracker.cam, tracker.map, slots, [fixed_slot], tracker.scale2_np,
-                          max(self.cfg.capacity.local_ba_points, self.cfg.capacity.max_points))
+                          max(self.cfg.capacity.local_ba_points, self.cfg.capacity.max_points),
+                          solver=getattr(tracker, "ba_solver", None))
         tracker._apply_ba(ba)

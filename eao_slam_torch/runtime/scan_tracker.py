@@ -43,6 +43,8 @@ from eao_slam_torch.objects.yaw import update_yaw, yaw_sample_scores
 from eao_slam_torch.ops import matching
 from eao_slam_torch.ops.lines import detect_segments
 from eao_slam_torch.ops.orb import extract_orb, scale_sigma2
+from eao_slam_torch.parallel.distributed import all_gather_blocks
+from eao_slam_torch.parallel.frames import frame_block, frame_block_len, gather_features
 from eao_slam_torch.runtime import tracking_kernels as tk
 from eao_slam_torch.runtime.compaction import covisibility, cull_and_compact
 from eao_slam_torch.runtime.frame import Frame, empty_boxes
@@ -503,18 +505,26 @@ def make_track_chunk(cfg: SystemConfig):
 
 
 def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
-                  active=None, boxes=None) -> FrameBatch:
+                  active=None, boxes=None, mesh=None) -> FrameBatch:
     """ORB front end over a chunk of raw images [C, H, W] uint8 (one FAST
     kernel launch for all pyramid levels of the whole chunk) and, with
     line-alignment yaw on and boxes given, the chunk's line segments (one
     batched call, nothing read back); ``boxes``: (boxes, class, score,
-    valid) tensors [C, B, ...] or None."""
+    valid) tensors [C, B, ...] or None. With a frame ``mesh`` of more than
+    one rank each rank extracts its block of the frames and the features
+    (and segments) are gathered in frame order (``parallel.frames``)."""
     F = cfg.capacity.max_features
-    img = images_u8.to(torch.float32)
+    C = images_u8.shape[0]
+    lo, hi = (0, C) if mesh is None else frame_block(mesh, C)
+    img = images_u8[lo:hi].to(torch.float32)
     lines = {}
     if boxes is not None and cfg.flag.use_yaw_lines:
-        lines = dict(zip(("lines", "line_valid"),
-                         detect_segments(img, max_lines=cfg.capacity.max_lines)))
+        segs, seg_valid = detect_segments(img, max_lines=cfg.capacity.max_lines)
+        if mesh is not None:
+            counts = [frame_block_len(mesh, C, i) for i in range(mesh.axis_size())]
+            segs = all_gather_blocks(segs, mesh, None, counts)
+            seg_valid = all_gather_blocks(seg_valid, mesh, None, counts)
+        lines = dict(lines=segs, line_valid=seg_valid)
     feats = extract_orb(
         img, n_features=F, n_levels=cfg.orb.n_levels,
         scale_factor=cfg.orb.scale_factor,
@@ -522,6 +532,8 @@ def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
         min_threshold=float(cfg.orb.fast_min_threshold),
         border=cfg.orb.edge_threshold,
     )
+    if mesh is not None:
+        feats = gather_features(feats, mesh, C)
     return FrameBatch(
         kp=undistort_points(cfg.camera, feats.kp), desc=feats.desc,
         octave=feats.octave, angle=feats.angle, valid=feats.valid,
@@ -533,12 +545,19 @@ def extract_batch(cfg: SystemConfig, images_u8: torch.Tensor, timestamps,
     )
 
 
-def make_extract_track(cfg: SystemConfig, track_chunk):
+def make_extract_track(cfg: SystemConfig, track_chunk, mesh=None):
     """fn(carry, images_u8 [C, H, W], timestamps [C], active=None,
     boxes=None): raw images of one chunk (and their detector boxes)
-    through ORB extraction and chunk tracking."""
+    through ORB extraction and chunk tracking. With a frame ``mesh`` of
+    more than one rank the extraction is split over the ranks by frame
+    (every frame's pyramid, FAST and BRIEF run wholly on one rank, so
+    its features are unchanged) and the tracking runs on every rank."""
+    if mesh is not None and mesh.size < 2:
+        mesh = None
+
     def extract_track(carry, images_u8, timestamps, active=None, boxes=None):
-        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active, boxes))
+        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active, boxes,
+                                                mesh))
 
     return extract_track
 
@@ -550,17 +569,32 @@ def make_extract_track(cfg: SystemConfig, track_chunk):
 class ChunkedTracker:
     """Bootstrap through MonoTracker, then chunked tracking with one
     pose/state readback per chunk and the between-chunk passes. Runs on
-    ``cuda`` unless told otherwise."""
+    ``cuda`` unless told otherwise (on a mesh, on the mesh's device).
 
-    def __init__(self, cfg: SystemConfig, chunk: int = 32, device=None):
+    ``mesh``: a frame mesh (``parallel.frames.make_frame_mesh``) over the
+    ranks of a process group, every rank running this tracker on the same
+    input. With more than one rank the chunk's extraction is split over
+    the ranks by frame, and the between-chunk global BA after a loop
+    correction runs through the distributed dense-clique Schur solver on
+    a (host, device) mesh of the same ranks (``ba_solver``)."""
+
+    def __init__(self, cfg: SystemConfig, chunk: int = 32, device=None, mesh=None):
         self.cfg = cfg
         self.chunk = chunk
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self._ba_mesh = None
+        if self.mesh is not None:
+            from eao_slam_torch.parallel.dist_ba2 import make_hd_mesh
+
+            self._ba_mesh = make_hd_mesh(2 if self.mesh.size >= 4 else 1, self.device)
         fp32_solvers()
         self.inner = MonoTracker(cfg, self.device)
         self.carry: Optional[ChunkCarry] = None
         self._track_chunk = make_track_chunk(cfg)
-        self._extract_track = make_extract_track(cfg, self._track_chunk)
+        self._extract_track = make_extract_track(cfg, self._track_chunk, self.mesh)
         self.records: list = []   # (timestamp, T 3x4 np or None, state)
         self.n_maintenance = 0    # cull + compact passes run
         self.n_relocalized = 0    # between-chunk relocalizations that succeeded
@@ -675,6 +709,15 @@ class ChunkedTracker:
         chunk tracking, with their detector boxes ([n, B, ...] arrays; none
         given means no detections). Short batches are padded with the last
         image and masked inactive."""
+        kf_before = self.kf_count_host
+        outs = self._dispatch_images(images_u8, timestamps, boxes, box_class, box_score,
+                                     box_valid)
+        return self._after_chunk(outs, np.asarray(timestamps, np.float32), kf_before)
+
+    def _dispatch_images(self, images_u8, timestamps, boxes=None, box_class=None,
+                         box_score=None, box_valid=None) -> ChunkOutputs:
+        """``track_images`` without the records and the between-chunk
+        passes (a multi-sequence engine defers those)."""
         if self.carry is None:
             raise RuntimeError("call bootstrap() until it returns True")
         C = self.chunk
@@ -701,10 +744,9 @@ class ChunkedTracker:
                     np.broadcast_to(x, (n,) + x.shape) for x in empty_boxes(self.cfg))
             box_t = tuple(torch.as_tensor(pad(x), device=self.device)
                           for x in (boxes, box_class, box_score, box_valid))
-        kf_before = self.kf_count_host
         self.carry, outs = self._extract_track(
             self.carry, torch.as_tensor(imgs, device=self.device), ts, active, box_t)
-        return self._after_chunk(outs, np.asarray(timestamps, np.float32), kf_before)
+        return outs
 
     def _after_chunk(self, outs: ChunkOutputs, ts, kf_before: int) -> ChunkOutputs:
         self._record_chunk(outs, ts, kf_before)
@@ -869,6 +911,27 @@ class ChunkedTracker:
     # -- views and exports ------------------------------------------------
 
     @property
+    def ba_solver(self):
+        """(cam, BAProblem) -> BAResult for the between-chunk global BA
+        (loop correction): None on one rank (the single-device 5 + 10
+        schedule, ``solvers.ba.local_ba``); over a mesh, the same schedule
+        through the distributed dense-clique solver
+        (``parallel.dist_ba2``)."""
+        if self._ba_mesh is None:
+            return None
+        from eao_slam_torch.parallel.dist_ba2 import distributed_bundle_adjust_v2
+
+        ba_mesh = self._ba_mesh
+
+        def dist_local_ba(cam, prob):
+            res1 = distributed_bundle_adjust_v2(cam, prob, ba_mesh, iters=5)
+            prob2 = prob._replace(poses=res1.poses, points=res1.points,
+                                  obs_valid=prob.obs_valid & res1.obs_inlier)
+            return distributed_bundle_adjust_v2(cam, prob2, ba_mesh, iters=10)
+
+        return dist_local_ba
+
+    @property
     def armed(self) -> bool:
         return self.carry is not None
 
@@ -934,6 +997,8 @@ class _LoopView:
         self.kf_pt_host = m.kf_pt_idx.cpu().numpy().copy()
         self.pt_valid_host = m.pt_valid.cpu().numpy().copy()
         self._covis_cache = None
+        # the global BA's solver rides through the view (None: single device)
+        self.ba_solver = chunked.ba_solver
 
     def covis_weights(self, slot: int) -> np.ndarray:
         """Row of the covisibility matrix: one cached product per pass."""

@@ -64,11 +64,23 @@ class System:
 
     def __init__(self, config: Optional[SystemConfig] = None,
                  flag: DemoFlag | str = DemoFlag.NONE, chunked: bool = True,
-                 chunk: int = 32, device=None):
+                 chunk: int = 32, device=None, mesh=None):
+        """``mesh``: None, a frame mesh over the ranks of a process group
+        (``parallel.frames.make_frame_mesh``), or "auto" (a frame mesh over
+        every rank when there is more than one, else None). Every rank
+        feeds the same frames; with more than one rank the chunked tracker
+        splits each chunk's extraction over the ranks by frame and runs
+        the global BA of a loop correction through the distributed solver
+        (``ChunkedTracker.ba_solver``)."""
         self.cfg = config if config is not None else tum3_config(flag)
         self.chunked = chunked
+        if mesh == "auto":
+            from eao_slam_torch.parallel.distributed import world
+            from eao_slam_torch.parallel.frames import make_frame_mesh
+
+            mesh = make_frame_mesh(device) if world()[1] > 1 else None
         if chunked:
-            self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device)
+            self.tracker = ChunkedTracker(self.cfg, chunk=chunk, device=device, mesh=mesh)
             self.tracker.compaction_listeners.append(self._on_compaction)
             self.device = self.tracker.device
         else:

@@ -149,9 +149,12 @@ class InitAttempts:
         def wrapped(cam, uv1, uv2, valid, *args, **kw):
             a = len(self.attempts)
             extra = {}
-            if self.draw is not None:         # the reference: keep its draw
-                extra["hyp_idx"] = self.draw(valid, args[0])
+            if self.draw is not None:         # the reference: keep its draw and inputs
+                extra["hyp_idx"] = np.asarray(self.draw(valid, args[0]))
                 extra["ok"] = np.asarray(valid)
+                extra.update(uv1=np.asarray(uv1), uv2=np.asarray(uv2),
+                             key=np.asarray(args[0]), sigma=kw.get("sigma", 1.0),
+                             min_triangulated=kw["min_triangulated"])
             if self.replay is not None:       # the port: take the reference's
                 import torch
 
@@ -180,11 +183,13 @@ class InitAttempts:
         return [{k: a[k] for k in ("frame", "success", "points")} for a in self.attempts]
 
     def save(self, path: str) -> None:
-        np.savez_compressed(path, hyp_idx=np.stack([a["hyp_idx"] for a in self.attempts]),
-                            ok=np.stack([a["ok"] for a in self.attempts]),
-                            frame=np.array([a["frame"] for a in self.attempts]),
-                            success=np.array([a["success"] for a in self.attempts]),
-                            points=np.array([a["points"] for a in self.attempts]))
+        """All attempts: the draws, the valid-match masks (``ok``), each
+        attempt's matched pixels (``uv1``, ``uv2``), key, sigma and
+        ``min_triangulated``, and its frame, success and points."""
+        keys = ("hyp_idx", "ok", "uv1", "uv2", "key", "sigma", "min_triangulated",
+                "frame", "success", "points")
+        np.savez_compressed(path, **{k: np.stack([np.asarray(a[k]) for a in self.attempts])
+                                     for k in keys})
 
 
 def count_triangulations(tracker) -> list:

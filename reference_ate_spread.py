@@ -95,9 +95,12 @@ keyframe's triangulations added and each two-view initialization attempt
 hypothesis indices the reference draws there (``jax.random.choice`` of
 ``solvers/init2view.py`` on the key the tracker split for the call,
 recomputed in a jitted program of the same operations) with the
-valid-match mask they were drawn over, and writes them to
+valid-match mask they were drawn over and the attempt's inputs (the
+matched pixels ``uv1`` / ``uv2``, the key, sigma and
+``min_triangulated``), and writes them to
 ``DIR/init_draws_seed<seed>.npz`` for ``port_ate_spread.py
---replay-init``. ``--port-orb`` feeds the reference's MonoTracker the
+--replay-init`` (tests/init2view_seed4_frame4.npz is one attempt of such
+a file). ``--port-orb`` feeds the reference's MonoTracker the
 port's front end instead of its own: each frame's ORB features from
 ``eao_slam_torch.runtime.frame.frame_from_image`` on the CPU (computed once
 for all seeds), through ``System.track_frame``; the reference's tracker on

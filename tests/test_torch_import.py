@@ -36,7 +36,10 @@ def test_port_imports_no_jax():
         "'eao_slam_torch.io.kitti', 'eao_slam_torch.io.euroc', "
         "'eao_slam_torch.io.native_loader', 'eao_slam_torch.utils.profiling', "
         "'eao_slam_torch.viz.raster', 'eao_slam_torch.viz.frame_drawer', "
-        "'eao_slam_torch.viz.map_drawer', 'eao_slam_torch.viz.viewer'}\n"
+        "'eao_slam_torch.viz.map_drawer', 'eao_slam_torch.viz.viewer', "
+        "'eao_slam_torch.parallel', 'eao_slam_torch.parallel.distributed', "
+        "'eao_slam_torch.parallel.dist_ba', 'eao_slam_torch.parallel.dist_ba2', "
+        "'eao_slam_torch.parallel.frames', 'eao_slam_torch.parallel.multi_seq'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -176,3 +179,46 @@ def test_config_matches_reference_fields_and_defaults():
             assert getattr(f, prop) == getattr(j, prop), (f, prop)
     assert tc.tum3_config().seed == jc.tum3_config().seed
     assert tc.tum3_config().camera == tuple(jc.tum3_config().camera)
+
+
+def test_mesh_auto_without_a_process_group_is_one_device():
+    """System(mesh="auto") with no process group (one process) arms no
+    mesh, as the reference's does on one device: the chunked tracker has
+    no BA mesh and ``ba_solver`` is None; a one-rank mesh is the same,
+    and without EAO_COORDINATOR initialize_from_env starts nothing."""
+    from eao_slam_torch.parallel.distributed import world
+    from eao_slam_torch.parallel.frames import make_frame_mesh
+    from eao_slam_torch.runtime.scan_tracker import ChunkedTracker
+    from eao_slam_torch.system import System
+
+    assert world() == (0, 1)
+    sysm = System(_cfg(), device="cpu", mesh="auto")
+    assert sysm.tracker.mesh is None and sysm.tracker.ba_solver is None
+    assert ChunkedTracker(_cfg(), device="cpu", mesh=make_frame_mesh("cpu")).ba_solver is None
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EAO_")}
+    code = ("from eao_slam_torch.parallel.distributed import initialize_from_env\n"
+            "assert initialize_from_env(device='cpu') is False\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(env, PYTHONPATH=REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_initialize_from_env_raises_on_a_group_that_cannot_form(tmp_path):
+    """EAO_PROCESS_ID outside EAO_NUM_PROCESSES raises; a group whose other
+    ranks never come raises at its timeout. Nothing falls back to one
+    process."""
+    code = ("import os\n"
+            "from eao_slam_torch.parallel.distributed import initialize_from_env\n"
+            "try:\n"
+            "    initialize_from_env(device='cpu', timeout_s=float(os.environ['T']))\n"
+            "except Exception as exc:\n"
+            "    print('RAISED', type(exc).__name__)\n")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("EAO_")}
+    for extra, t_s in (({"EAO_NUM_PROCESSES": "2", "EAO_PROCESS_ID": "2"}, "5"),
+                       ({"EAO_NUM_PROCESSES": "2", "EAO_PROCESS_ID": "0"}, "3")):
+        env = dict(base, PYTHONPATH=REPO, T=t_s,
+                   EAO_COORDINATOR=f"file://{tmp_path}/store_{extra['EAO_PROCESS_ID']}", **extra)
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert "RAISED" in out.stdout, out.stdout + out.stderr

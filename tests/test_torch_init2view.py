@@ -134,3 +134,136 @@ def test_rendered_pair_with_reference_draws():
     want = np.asarray(rj.points)[ok]
     rel = np.abs(n(rt.points)[ok] - want).max(1) / np.abs(want[:, 2])
     assert rel.max() <= 2e-4, rel.max()
+
+
+# ---------------------------------------------------------------------------
+# the recorded attempts: where the two packages part on the same draws
+# ---------------------------------------------------------------------------
+
+FIXTURES = {4: "init2view_seed4_frame4.npz", 12345: "init2view_seed12345_frame4.npz"}
+
+
+def _attempt(seed: int) -> dict:
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURES[seed])
+    return dict(np.load(path))
+
+
+def _up_to_sign(a, b) -> np.ndarray:
+    """Per hypothesis, the largest entry difference of two [B, 3, 3]
+    stacks, each pair taken with the sign that matches them best."""
+    a = np.asarray(a).reshape(len(a), -1)
+    b = np.asarray(b).reshape(len(b), -1)
+    s = np.where((a * b).sum(1, keepdims=True) < 0, -1.0, 1.0)
+    return np.abs(a - s * b).max(1)
+
+
+def _f_normal_matrices(n1, n2, hyp) -> np.ndarray:
+    """The F hypotheses' A^T A in float64 from the reference's normalized
+    points: the system whose smallest eigenvector each package takes."""
+    p1 = np.asarray(n1, np.float64)[hyp]
+    p2 = np.asarray(n2, np.float64)[hyp]
+    x1, y1, x2, y2 = p1[..., 0], p1[..., 1], p2[..., 0], p2[..., 1]
+    A = np.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, np.ones_like(x1)], -1)
+    return np.swapaxes(A, -1, -2) @ A
+
+
+def _decision(res) -> tuple:
+    return bool(res.success), int(res.n_inliers), int(np.asarray(res.point_ok).sum())
+
+
+@pytest.mark.parametrize("seed", [4, 12345])
+def test_recorded_attempt_parts_at_the_f_hypotheses(seed, monkeypatch):
+    """Two attempts the reference's interactive tracker made on the bench
+    arc (``reference_ate_spread.py --interactive --record-init``, frame 4 of
+    RANSAC seeds 4 and 12345): the matched pixels, the valid mask and the
+    [256, 8] hypothesis indices its key draws. Stage by stage, on the same
+    arrays (the reference's private functions called eagerly):
+
+    - ``normalize_points`` and the 256 homographies agree to float32 noise
+      (1e-6 and, up to sign, 1e-4), and both packages elect the same H;
+    - the 256 fundamental matrices part. Each is the smallest eigenvector
+      of an 8-point A^T A, which has rank 8: the next eigenvalue is 2.6e-7
+      (seed 4; 3.9e-7 on seed 12345) of the largest, at float32
+      resolution, so the eigenvector is float32 noise. The two packages'
+      A^T A agree to 1e-6 of their largest entry, yet their eigenvectors
+      differ by more than 1e-3 on most hypotheses, and each lies as far
+      from the float64 eigenvector as from the other package's;
+    - given the reference's F hypotheses (the port's ``_solve_f_batch``
+      replaced), the port's later stages (the F scores and their argmax,
+      the two refit rounds, RH, the 12 candidates' cheirality counts and
+      parallax, the uniqueness test and ``min_good``) reach the decision the
+      reference reaches eagerly on the same arrays: success, inliers and
+      points exact, the rotation to 2e-4 and the unit translation to 0.02
+      (measured 7e-5 / 9e-5 and 0.005 / 0.010: the refits' eigenvectors
+      carry float32 noise too).
+
+    So the disagreement is float32 noise amplified by discrete choices, and
+    is pinned, not repaired. Seed 4 (the reference elects F with 403
+    inliers and 398 points; the port, on its own F hypotheses, finds 399
+    inliers and fails a gate): the reference's best two F scores lie 0.47 %
+    apart, and the port's best hypothesis is another one. Seed 12345: the
+    port agrees with the reference's jitted program (success, 398 inliers,
+    393 points), while the same reference code run eagerly fails there
+    (400 inliers: the H and E candidates of one rotation 33 degrees apart
+    in translation count as two distinct solutions): the reference's own
+    float32 rounding flips this decision too."""
+    d = _attempt(seed)
+    uv1, uv2, valid, hyp = d["uv1"], d["uv2"], d["valid"], d["hyp_idx"]
+    mt = int(d["min_triangulated"])
+    ju1, ju2, jv = jnp.asarray(uv1), jnp.asarray(uv2), jnp.asarray(valid)
+
+    jn1, jT1 = jinit.normalize_points(ju1, jv)
+    jn2, jT2 = jinit.normalize_points(ju2, jv)
+    tn1, tT1 = tinit.normalize_points(t(uv1), t(valid))
+    tn2, tT2 = tinit.normalize_points(t(uv2), t(valid))
+    for a, b in ((jn1, tn1), (jn2, tn2), (jT1, tT1), (jT2, tT2)):
+        np.testing.assert_allclose(n(b), np.asarray(a), atol=1e-6)
+
+    js1, js2 = jn1[jnp.asarray(hyp)], jn2[jnp.asarray(hyp)]
+    ts1, ts2 = tn1[t(hyp).long()], tn2[t(hyp).long()]
+    jH = jnp.linalg.inv(jT2)[None] @ jinit._solve_h_batch(js1, js2) @ jT1[None]
+    tH = torch.linalg.inv(tT2)[None] @ tinit._solve_h_batch(ts1, ts2) @ tT1[None]
+    assert _up_to_sign(jinit._solve_h_batch(js1, js2), tinit._solve_h_batch(ts1, ts2)).max() < 1e-4
+    jhs = np.asarray(jinit._score_h(jH, ju1, ju2, jv, 1.0)[0])
+    ths = n(tinit._score_h(tH, t(uv1), t(uv2), t(valid), 1.0)[0])
+    assert int(np.argmax(jhs)) == int(np.argmax(ths))
+
+    jFn = np.asarray(jinit._solve_f_batch(js1, js2))
+    tFn = n(tinit._solve_f_batch(ts1, ts2))
+    AtA = _f_normal_matrices(jn1, jn2, hyp)
+    w = np.linalg.eigvalsh(AtA)
+    assert np.median(w[:, 1] / w[:, -1]) < 1e-6          # measured 2.6e-7, 3.9e-7
+    f64 = np.linalg.eigh(AtA)[1][..., :, 0].reshape(-1, 3, 3)
+    unit = [f / np.linalg.norm(f.reshape(len(f), -1), axis=1)[:, None, None] for f in (jFn, tFn)]
+    between = _up_to_sign(*unit)
+    assert np.mean(between > 1e-3) > 0.8                 # measured 0.96 (seed 4)
+    for u in unit:
+        assert np.median(_up_to_sign(u, f64)) > 1e-3     # measured 0.013 (reference), 0.017
+    # the rank-2 projection does not part them: given the same unit vector
+    # both packages' SVD gives the same F to float32 noise
+    same = n(tinit._rank2(t(np.asarray(jinit._solve_f_batch(js1, js2)))))
+    assert _up_to_sign(same, jFn).max() < 1e-4
+
+    jfs = np.sort(np.asarray(jinit._score_f(jT2.T[None] @ jnp.asarray(jFn) @ jT1[None],
+                                            ju1, ju2, jv, 1.0)[0]))[::-1]
+    gap = (jfs[0] - jfs[1]) / jfs[0]
+    key = jnp.asarray(d["key"])
+    ref_jit = _decision(jinit.initialize_two_view(JCAM, ju1, ju2, jv, key, min_triangulated=mt))
+    with jax.disable_jit():
+        ref_eager = jinit.initialize_two_view(JCAM, ju1, ju2, jv, key, min_triangulated=mt)
+    port = _decision(tinit.initialize_two_view(TCAM, t(uv1), t(uv2), t(valid), hyp_idx=t(hyp),
+                                               min_triangulated=mt))
+    monkeypatch.setattr(tinit, "_solve_f_batch", lambda p1, p2: t(jFn))
+    fed = tinit.initialize_two_view(TCAM, t(uv1), t(uv2), t(valid), hyp_idx=t(hyp),
+                                    min_triangulated=mt)
+    assert _decision(fed) == _decision(ref_eager)
+    dT = np.abs(n(fed.T21) - np.asarray(ref_eager.T21))
+    assert dT[:, :3].max() < 2e-4 and dT[:, 3].max() < 0.02
+    if seed == 4:
+        assert ref_jit == (True, 403, 398) and port == (False, 399, 0)
+        assert gap < 0.01                                # measured 0.0047
+    else:
+        assert ref_jit == port == (True, 398, 393)
+        assert _decision(ref_eager) == (False, 400, 0)
