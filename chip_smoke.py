@@ -357,6 +357,12 @@ DRIVER_SWEEP_DEG = 18.0
 DRIVER_MIN_TRACKED = 8
 KITTI_IDENTITY_TOL = 1e-6
 UNDISTORT_TOL_PX = 1e-5
+# the geometry helpers the drivers' presets come with, card against CPU:
+# backproject divides by a tensor (camera._ieee_div) and multiplies, so its
+# bits are the CPU's; the rest goes through sin/cos, cuSOLVER's SVD and
+# sqrt, a few float32 ulps of unit-scale values apart
+HELPER_EXACT = ("backproject",)
+HELPER_TOL = 1e-5
 EUROC_STAMP0 = 1403636579000000000
 
 _SCENES: dict = {}
@@ -818,7 +824,20 @@ def object_results(tracker, ts, gt) -> dict:
                                                      scene.obj_classes),
             "object_centre_err_sim3_m": sim3_object_errors(m, tab, ts, gt, scene.obj_centers),
             "merges": tracker.n_object_merges, "kills": tracker.n_object_kills,
-            "object_keyframes": int(m["kf_by_object"].sum()), "object_yaws": object_yaws(tab)}
+            "object_keyframes": int(m["kf_by_object"].sum()), "object_yaws": object_yaws(tab),
+            "object_extents": object_extents(m, tab)}
+
+
+def object_extents(m, tab) -> list:
+    """Each live object's slot, class, member points (valid map points that
+    name it) and cuboid extent ``cub_max - cub_min`` per axis, in map units
+    (the initializer sets the initial map's median depth to 1, in both
+    packages). ``m``, ``tab``: a tracker's map and object table, fields by
+    name as numpy arrays, of either package."""
+    owner = np.where(m["pt_valid"], m["pt_object_id"], -1)
+    return [{"slot": int(j), "cls": int(tab["cls"][j]), "members": int((owner == j).sum()),
+             "extent": (tab["cub_max"][j] - tab["cub_min"][j]).astype(np.float64).tolist()}
+            for j in np.flatnonzero(tab["valid"] & ~tab["bad"])]
 
 
 def check_run(run: dict, ate_limit: float = ATE_LIMIT_M) -> None:
@@ -2436,6 +2455,44 @@ MONO_TUM_CODE = ("import json, sys\n"
                  "sys.exit(rc)\n")
 
 
+def geometry_helpers_card_against_cpu(kp, poses) -> dict:
+    """The TUM1 / TUM2 presets' undistortion, backproject, orthonormalize_svd,
+    to_quat_trans / from_quat_trans and rot_y on the card against the CPU:
+    ``kp`` a frame's keypoints on the card, ``poses`` [N, 3, 4] true poses
+    (their rotations sheared, then projected back by orthonormalize_svd).
+    Returns each one's max |diff|; raises beyond HELPER_TOL, or beyond 0
+    for HELPER_EXACT."""
+    import torch
+
+    from eao_slam_torch.geometry import camera, se3, so3
+
+    rng = np.random.default_rng(11)
+    depth = torch.as_tensor(rng.uniform(0.5, 5.0, kp.shape[0]).astype(np.float32), device="cuda")
+    T = torch.as_tensor(poses.astype(np.float32), device="cuda")
+    skew = torch.as_tensor(rng.normal(0, 0.2, (len(poses), 3, 3)).astype(np.float32),
+                           device="cuda")
+    far = torch.cat([se3.rot(T) + skew, se3.trans(T)[..., None]], -1)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, 256).astype(np.float32), device="cuda")
+    quat = se3.to_quat_trans(T.cpu())
+    calls = {
+        "undistort_TUM1": lambda d: camera.undistort_points(camera.TUM1, kp.to(d)),
+        "undistort_TUM2": lambda d: camera.undistort_points(camera.TUM2, kp.to(d)),
+        "backproject": lambda d: camera.backproject(camera.TUM1, kp.to(d), depth.to(d)),
+        "orthonormalize_svd": lambda d: se3.orthonormalize_svd(far.to(d)),
+        "to_quat_trans": lambda d: torch.cat(se3.to_quat_trans(T.to(d)), -1),
+        "from_quat_trans": lambda d: se3.from_quat_trans(*(x.to(d) for x in quat)),
+        "rot_y": lambda d: so3.rot_y(yaw.to(d)),
+    }
+    out = {name: float((fn("cuda").cpu() - fn("cpu")).abs().max()) for name, fn in calls.items()}
+    print(f"geometry helpers, card against CPU (max |diff|; limit 0 for "
+          f"{', '.join(HELPER_EXACT)}, else {HELPER_TOL:g}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    bad = {k: v for k, v in out.items() if not v <= (0.0 if k in HELPER_EXACT else HELPER_TOL)}
+    if bad:
+        raise AssertionError(f"geometry helpers, card against CPU: {bad}")
+    return out
+
+
 def run_cli(ts, gt, images, clock_hz: float) -> dict:
     """The command-line drivers (the module docstring's phase 12)."""
     import tempfile
@@ -2541,6 +2598,7 @@ def run_cli(ts, gt, images, clock_hz: float) -> dict:
             raise AssertionError(f"mono_euroc: {estats}, undistortion {und:.3g} px, {elaunch}")
         out["mono_euroc"] = {"stats": estats, "ate_m": eate, "undistort_max_abs_px": und,
                              "launches": elaunch, "seconds": t_euroc}
+        out["geometry_helpers"] = geometry_helpers_card_against_cpu(kp, gt_d)
 
     # the FAST kernel at the drivers' shapes: 32 rendered frames (the
     # drivers' 24, then their first 8 again), 8 levels at 1.2

@@ -36,6 +36,11 @@ class Camera(NamedTuple):
 
 # TUM freiburg3 intrinsics (TUM3.yaml, zero distortion).
 TUM3 = Camera(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480, fps=30.0)
+# TUM freiburg1 / freiburg2 (TUM1.yaml, TUM2.yaml, radial-tangential distortion).
+TUM1 = Camera(517.306408, 516.469215, 318.643040, 255.313989,
+              0.262383, -0.953104, -0.005358, 0.002628, 1.163314, 640, 480, 30.0)
+TUM2 = Camera(520.908620, 521.007327, 325.141442, 249.701764,
+              0.231222, -0.784899, -0.003257, -0.000105, 0.917205, 640, 480, 30.0)
 # KITTI odometry rectified intrinsics (KITTI00-02.yaml, KITTI03.yaml, KITTI04-12.yaml).
 KITTI00_02 = Camera(718.856, 718.856, 607.1928, 185.2157,
                     width=1241, height=376, fps=10.0)
@@ -56,6 +61,13 @@ def project(cam: Camera, xc: torch.Tensor) -> torch.Tensor:
     u = cam.fx * xc[..., 0] * inv_z + cam.cx
     v = cam.fy * xc[..., 1] * inv_z + cam.cy
     return torch.stack([u, v], -1)
+
+
+def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Undistorted pixels (..., 2) at depths (...,) -> camera-frame points (..., 3)."""
+    x = _ieee_div(uv[..., 0] - cam.cx, cam.fx)
+    y = _ieee_div(uv[..., 1] - cam.cy, cam.fy)
+    return torch.stack([x * depth, y * depth, depth], -1)
 
 
 def distort_normalized(cam: Camera, xn: torch.Tensor) -> torch.Tensor:

@@ -82,3 +82,24 @@ def orthonormalize(T: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         R = 0.5 * R @ (3.0 * I3 - R.transpose(-1, -2) @ R)
     return make(R, trans(T))
+
+
+def orthonormalize_svd(T: torch.Tensor) -> torch.Tensor:
+    """The closest rotation by SVD, sign-corrected to det +1: for inputs
+    that may lie far from SO(3) (averaged rotations), where the Newton
+    iteration of ``orthonormalize`` need not converge."""
+    U, _, Vt = torch.linalg.svd(rot(T))
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones_like(det)
+    D = torch.stack([one, one, det], -1)
+    return make(U @ (D[..., :, None] * Vt), trans(T))
+
+
+def to_quat_trans(T: torch.Tensor):
+    """-> ((..., 4) wxyz quaternion, (..., 3) translation), the TUM export's order."""
+    return so3.mat_to_quat(rot(T)), trans(T)
+
+
+def from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternions (..., 4) and translations (..., 3) -> poses (..., 3, 4)."""
+    return make(so3.quat_to_mat(q), t)

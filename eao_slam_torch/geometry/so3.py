@@ -121,3 +121,13 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
     q = q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+
+
+def rot_y(yaw: torch.Tensor) -> torch.Tensor:
+    """Rotation about the Y axis by ``yaw`` (...,) -> (..., 3, 3): the
+    cuboid yaw (the reference's ``rotY``)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, z, s], -1),
+                        torch.stack([z, o, z], -1),
+                        torch.stack([-s, z, c], -1)], -2)

@@ -4,6 +4,7 @@
     python3 port_ate_spread.py --flag LineAndiForest --seeds 5 --record-yaw DIR
     python3 port_ate_spread.py --interactive [--flag EAO] [--seeds ...] [--device cpu]
     python3 port_ate_spread.py --interactive --device cpu --replay-init DIR [--seeds ...]
+    python3 port_ate_spread.py --interactive --device cpu --ref-ba-rounding [--seeds ...]
     python3 port_ate_spread.py --cli-test DIR [--scenes 4 5 ...] [--seeds ...] [--device cpu] \
         [--replay-init DIR]
     python3 port_ate_spread.py --summarize NAME=LOG[,LOG...] NAME=LOG ... [--early 5]
@@ -41,7 +42,13 @@ stops with an error where an attempt's valid-match mask differs from the
 reference's: the port with the reference's draws, to tell the
 initializer's random draw from the rest of the tracker. A seed whose
 replay stops prints its reason (``stopped``); the other seeds go on, and
-the script then exits 1.
+the script then exits 1. ``--ref-ba-rounding`` runs the interactive
+protocol with the port's windowed and global BA assembling its normal
+equations from terms rounded as the reference's one-hot matmuls round them
+(each term split into two bfloat16 halves, about 16 mantissa bits;
+``ref_rounding_lm_system``), still summed in float64: the port with the
+reference's assembly arithmetic, to tell that arithmetic's share of a
+spread.
 
 ``--cli-test DIR`` runs the port's ``cli.run_mono_tum("EAO", ...)``, as
 tests/test_torch_cli.py's slow test does, on that test's 26-frame
@@ -64,7 +71,9 @@ the medians of the runs that initialized at frame ``--early`` (5) or
 earlier and later;
 for each pair of groups the two-sided Mann-Whitney p of their ATEs, and
 on the seeds where both initialized on the same frame both medians and
-how often the first is worse.
+how often the first is worse; with the object layer, per object class,
+both groups' medians of the live objects' member points and extents per
+axis (``object_extents``, map units) with the p of each.
 """
 
 from __future__ import annotations
@@ -124,6 +133,58 @@ class YawCalls:
     def save(self, path: str) -> None:
         np.savez_compressed(path, **{k: np.stack([c[k] for c in self.calls])
                                      for k in self.calls[0]})
+
+
+def ref_round(x):
+    """Each term as the reference's one-hot matmul takes it
+    (eao_slam_tpu/solvers/ba.py ``_mm``): ``hi = bf16(x)``, ``lo = bf16(x -
+    hi)``, the term ``hi + lo`` (exact in float32, about 16 mantissa bits)."""
+    import torch
+
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi + (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def ref_rounding_lm_system(cam, prob, poses, points):
+    """eao_slam_torch.solvers.ba._lm_system with every observation's term
+    rounded by ``ref_round`` before the float64 sum: the port's assembly
+    with the reference's per-term rounding and no other change."""
+    import torch
+
+    from eao_slam_torch.solvers import ba
+
+    r, Jc, Jp, depth_ok = ba._residuals(cam, prob, poses, points)
+    w, cost = ba._weights(prob, r, depth_ok)
+    K, P, O = prob.poses.shape[0], prob.points.shape[0], r.shape[0]
+    wJc, wJp = Jc * w[:, None, None], Jp * w[:, None, None]
+    kf, pt = prob.kf_idx.long(), prob.pt_idx.long()
+
+    def seg_sum(n_rows, idx, x):
+        out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float64, device=x.device)
+        return out.index_add_(0, idx, ref_round(x).to(torch.float64)).to(x.dtype)
+
+    Hcc = seg_sum(K, kf, torch.einsum("oki,okj->oij", wJc, Jc).reshape(O, 36)).reshape(K, 6, 6)
+    bc = seg_sum(K, kf, torch.einsum("oki,ok->oi", wJc, r))
+    Hpp = seg_sum(P, pt, torch.einsum("oki,okj->oij", wJp, Jp).reshape(O, 9)).reshape(P, 3, 3)
+    bp = seg_sum(P, pt, torch.einsum("oki,ok->oi", wJp, r))
+    Wcp = seg_sum(K * P, kf * P + pt,
+                  torch.einsum("oki,okj->oij", wJc, Jp).reshape(O, 18)).reshape(K, P, 6, 3)
+    return Hcc, Hpp, Wcp, bc, bp, cost
+
+
+@contextlib.contextmanager
+def ref_ba_rounding(on: bool = True):
+    """While entered (and ``on``), the port's BA assembles its normal
+    equations with ``ref_rounding_lm_system``."""
+    from eao_slam_torch.solvers import ba
+
+    saved = ba._lm_system
+    if on:
+        ba._lm_system = ref_rounding_lm_system
+    try:
+        yield
+    finally:
+        ba._lm_system = saved
 
 
 class ReplayDiverged(RuntimeError):
@@ -341,17 +402,18 @@ def summarize(specs: list, early: int) -> int:
                         runs[(None, int(seed))] = {**v, "seed": int(seed)}
         groups[name] = runs
         a = np.array([r["ate_m"] for r in runs.values()])
-        first = [r["ate_m"] for r in runs.values() if (r["init_frame"] or 99) <= early]
-        late = [r["ate_m"] for r in runs.values() if (r["init_frame"] or 99) > early]
+        first = [r["ate_m"] for r in runs.values() if (r.get("init_frame") or 99) <= early]
+        late = [r["ate_m"] for r in runs.values() if (r.get("init_frame") or 99) > early]
         print(json.dumps({
             "group": name, "runs": len(a), "stopped": stopped,
             "median_ate_m": float(np.median(a)), "max_ate_m": float(a.max()),
             "init_early": len(first), "init_early_median_m": float(np.median(first)) if first else None,
             "init_later": len(late), "init_later_median_m": float(np.median(late)) if late else None,
             "by_run": {f"{k[0]}/{k[1]}" if k[0] is not None else str(k[1]):
-                       [r["init_frame"], round(r["ate_m"], 4)] for k, r in sorted(runs.items())}}))
+                       [r.get("init_frame"), round(r["ate_m"], 4)]
+                       for k, r in sorted(runs.items())}}))
     for (n1, g1), (n2, g2) in itertools.combinations(groups.items(), 2):
-        same = [k for k in g1 if k in g2 and g1[k]["init_frame"] == g2[k]["init_frame"]]
+        same = [k for k in g1 if k in g2 and g1[k].get("init_frame") == g2[k].get("init_frame")]
         a, b = [g1[k]["ate_m"] for k in same], [g2[k]["ate_m"] for k in same]
         print(json.dumps({
             "pair": [n1, n2], "mann_whitney_p": float(mannwhitneyu(
@@ -359,7 +421,37 @@ def summarize(specs: list, early: int) -> int:
             "same_init_frame": len(same),
             "same_init_medians_m": [float(np.median(a)), float(np.median(b))] if same else None,
             "first_worse": sum(x > y for x, y in zip(a, b))}))
+        for cls, cmp in compare_extents(g1, g2).items():
+            print(json.dumps({"pair": [n1, n2], "cls": cls, **cmp}))
     return 0
+
+
+def compare_extents(g1: dict, g2: dict) -> dict:
+    """Per object class of the runs' ``object_extents`` (line or EAO mode):
+    the objects in each group, the medians of their member points and of
+    their extents per axis (map units), and the two-sided Mann-Whitney p of
+    each."""
+    from scipy.stats import mannwhitneyu
+
+    def by_cls(g):
+        out = {}
+        for r in g.values():
+            for o in r.get("object_extents", []):
+                out.setdefault(o["cls"], []).append(o)
+        return out
+
+    c1, c2 = by_cls(g1), by_cls(g2)
+    out = {}
+    for cls in sorted(set(c1) & set(c2)):
+        row = {"objects": [len(c1[cls]), len(c2[cls])]}
+        for key, axes in (("members", (None,)), ("extent", (0, 1, 2))):
+            for ax in axes:
+                a, b = ([o[key] if ax is None else o[key][ax] for o in c[cls]] for c in (c1, c2))
+                name = key if ax is None else f"{key}_{'xyz'[ax]}"
+                row[name] = {"medians": [float(np.median(a)), float(np.median(b))],
+                             "p": float(mannwhitneyu(a, b).pvalue)}
+        out[cls] = row
+    return out
 
 
 def main() -> int:
@@ -379,6 +471,9 @@ def main() -> int:
                    help="the spreads and Mann-Whitney p of logged runs, by group")
     p.add_argument("--early", type=int, default=5,
                    help="--summarize: the last init frame counted as early")
+    p.add_argument("--ref-ba-rounding", action="store_true",
+                   help="--interactive: the BA's terms rounded as the reference's one-hot "
+                        "matmuls round them (ref_rounding_lm_system)")
     p.add_argument("--record-yaw", metavar="DIR",
                    help="line mode: write every yaw call of each run to DIR")
     args = p.parse_args()
@@ -386,6 +481,8 @@ def main() -> int:
         return summarize(args.summarize, args.early)
     if args.replay_init and not (args.interactive or args.cli_test):
         p.error("--replay-init needs --interactive or --cli-test")
+    if args.ref_ba_rounding and not args.interactive:
+        p.error("--ref-ba-rounding needs --interactive")
     if args.record_yaw and args.flag != "LineAndiForest":
         p.error("--record-yaw needs --flag LineAndiForest")
     import torch
@@ -412,9 +509,11 @@ def main() -> int:
             if args.replay_init:
                 replay = dict(np.load(os.path.join(args.replay_init, INIT_DRAWS.format(seed))))
             head = {"seed": seed, "flag": args.flag, "interactive": True,
-                    "init_draws": "reference" if replay else "own"}
+                    "init_draws": "reference" if replay else "own",
+                    "ba_rounding": "reference" if args.ref_ba_rounding else "port"}
             try:
-                with InitAttempts(tracker, replay) as attempts:
+                with InitAttempts(tracker, replay) as attempts, \
+                        ref_ba_rounding(args.ref_ba_rounding):
                     r = {**head, **drive_recorded(sysm, ts, gt, images, boxes, attempts)}
             except ReplayDiverged as exc:
                 stopped.append(seed)
@@ -431,8 +530,8 @@ def main() -> int:
             os.makedirs(args.record_yaw, exist_ok=True)
             r["yaw_calls"] = os.path.join(args.record_yaw, f"yaw_calls_seed{seed}.npz")
             calls.save(r["yaw_calls"])
-        r.pop("timer")
-        r.pop("poses")
+        for key in ("timer", "poses", "frame_trajectory"):
+            r.pop(key)
         runs.append(r)
         print(json.dumps(r), flush=True)
     if not runs:

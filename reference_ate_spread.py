@@ -7,9 +7,11 @@
     JAX_PLATFORMS=cpu python reference_ate_spread.py --dense
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive [--flag EAO] [--modes] \
         --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --eager --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --record-init DIR --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --port-orb --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --lockstep --seeds ...
+    JAX_PLATFORMS=cpu python reference_ate_spread.py --interactive --stage-audit --seeds ...
     JAX_PLATFORMS=cpu python reference_ate_spread.py --cli
     JAX_PLATFORMS=cpu python reference_ate_spread.py --cli-test DIR [--scenes 4 5 ...] \
         [--record-init DIR] --seeds ...
@@ -38,7 +40,9 @@ for comparison, after one sim3 of the keyframe trajectory,
 ``--flag LineAndiForest`` (line detection inside the chunk program and
 line-alignment yaw) each live object's elected yaw and its yaw votes are
 printed beside the object errors (``object_yaws``); the scene's cuboids
-are axis-aligned in the first camera's frame, so the true yaw is 0. In
+are axis-aligned in the first camera's frame, so the true yaw is 0. In an
+object mode each live object's class, member points and cuboid extent per
+axis in map units are printed too (``object_extents``, chip_smoke.py's). In
 line mode the frames of a chunk go through ``frame_from_image`` one at a
 time (ORB features and line segments) and the chunk through
 ``ChunkedTracker.track_batch``: the fused program of ``track_images``
@@ -111,7 +115,18 @@ port (``convert.mono_tracker_from_numpy``), which takes the same step from
 it on the reference's own Frame; per frame it prints whether each made a
 keyframe, the tracked points, the live points, the points the step
 created, the observations and the pose difference, then their totals:
-whether any tracker stage differs from one state along a whole run.
+whether any tracker stage differs from one state along a whole run; and,
+element by element (``step_sets_differ``), the keyframe choice, the
+features whose tracked point differs, the points created or culled by one
+package and not the other and the observation slots that differ, with
+the first step where any of them does. ``--stage-audit [--frames N]``
+runs the reference alone over the first N frames and puts each of its
+keyframe triangulations and each motion model's pose LM (on the matches
+the motion model finds) through the port on the same inputs, the LM also
+in float64: the triangulations whose accepted points differ, and how far
+each package's float32 LM lies from the float64 result (medians, which
+is nearer how often, inlier flips): whether a stage decides otherwise
+on equal inputs, or only float32 rounding parts them.
 
 ``--cli`` runs the reference's ``mono_tum`` driver as chip_smoke.py's
 command-line phase runs the port's: the arc's frames (rendered by the
@@ -174,6 +189,7 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
     from eao_slam_tpu.runtime.frame import frame_from_image
     from eao_slam_tpu.runtime.scan_tracker import (
         ChunkedTracker, batch_from_frames, make_extract_track)
+    from chip_smoke import object_extents
     from eao_slam_torch.io.trajectory import map_object_errors, object_yaws, sim3_object_errors
 
     objects = flag != "None"
@@ -244,6 +260,7 @@ def run(seed: int, images, ts, gt, flag: str = "None", boxes=None, scene=None) -
                                                        scene.obj_classes)
         out["object_centre_err_sim3_m"] = sim3_object_errors(m, tab, ts, gt, scene.obj_centers)
         out["object_yaws"] = object_yaws(tab)
+        out["object_extents"] = object_extents(m, tab)
     return out
 
 
@@ -317,15 +334,158 @@ def lockstep_run(seed: int, images, ts, n_frames: int) -> dict:
                 int((d["kf_pt_host"] >= 0).sum()))))
         row["pose_diff"] = (None if T is None or Tp is None
                             else float(np.abs(np.asarray(T) - np.asarray(Tp)).max()))
+        row["sets_differ"] = step_sets_differ(before, jax_mono_numpy(ref),
+                                              mono_tracker_to_numpy(port))
         steps.append(row)
         print(json.dumps(row), flush=True)
     differ = [r["frame"] for r in steps if r["ref"] != r["port"]]
+    sets = [r["frame"] for r in steps if any(r["sets_differ"].values())]
     return {"seed": seed, "lockstep": True, "steps": len(steps),
             "keyframe_steps": sum(r["ref"]["kf"] for r in steps),
             "steps_whose_counts_differ": differ,
+            "steps_whose_sets_differ": sets,
+            "first_set_difference": next((r for r in steps if r["frame"] in sets), None),
             "max_pose_diff": max((r["pose_diff"] or 0.0) for r in steps),
             "totals": {tag: {k: sum(int(r[tag][k] or 0) for r in steps) for k in keys}
-                       for tag in ("ref", "port")}}
+                       for tag in ("ref", "port")},
+            "set_differences": {k: sum(r["sets_differ"][k] for r in steps)
+                                for k in steps[0]["sets_differ"]} if steps else {}}
+
+
+def step_sets_differ(before: dict, ref: dict, port: dict) -> dict:
+    """The discrete decisions of one step taken by both packages from the
+    state ``before`` (``jax_mono_numpy`` / ``mono_tracker_to_numpy``
+    dicts), element by element rather than by count. A point created in
+    the step is known by the keyframe feature it came from (the two may put
+    it in other slots); an older point by its slot. Counts: whether the
+    keyframe choice differs; the features whose tracked point (``last_pt``,
+    the pose's inlier set) differs; the keyframe features that got a new
+    point in one package only (``created``); the older points one package
+    culled and the other kept (``culled``); the keyframe features whose
+    older point, or whether it has one, differs (``observations``)."""
+    def kf(d):
+        return d["kf_slots"][-1] not in before["kf_slots"]
+
+    v0 = np.asarray(before["pt_valid_host"])
+
+    def old(x):
+        x = np.asarray(x)
+        return (x >= 0) & v0[np.clip(x, 0, len(v0) - 1)]
+
+    out = {"keyframe": int(kf(ref) != kf(port)), "inliers": 0}
+    if ref["last_pt"] is not None and port["last_pt"] is not None:
+        a, b = np.asarray(ref["last_pt"]), np.asarray(port["last_pt"])
+        out["inliers"] = int((((a >= 0) != (b >= 0)) | (old(a) & old(b) & (a != b))).sum())
+    ra, pa = np.asarray(ref["kf_pt_host"]), np.asarray(port["kf_pt_host"])
+    out["created"] = int((((ra >= 0) & ~old(ra)) != ((pa >= 0) & ~old(pa))).sum())
+    out["culled"] = int(((v0 & ~ref["pt_valid_host"]) != (v0 & ~port["pt_valid_host"])).sum())
+    out["observations"] = int(((old(ra) != old(pa)) | (old(ra) & old(pa) & (ra != pa))).sum())
+    return out
+
+
+def stage_audit(seed: int, images, ts, n_frames: int) -> dict:
+    """The reference tracks the first ``n_frames`` of the arc; each
+    keyframe triangulation (``triangulate_with_neighbor``) and each motion
+    model's pose LM (``optimize_pose`` on the matches that
+    ``track_motion_model`` finds) also runs on the same inputs in the port,
+    the LM in float32 and in float64. Returns the triangulations and
+    points whose acceptance differs, those points' least depth in the two
+    views (either package's point), the parallax cosine of those deeper
+    than 0.1 map units and the largest distance between the packages'
+    points there; and each LM's pose distance from the port's float64
+    result (medians, which package lies nearer how often) and its inlier
+    flips."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from eao_slam_torch.geometry.camera import TUM3 as PORT_TUM3
+    from eao_slam_torch.runtime import local_mapping as port_lm
+    from eao_slam_torch.solvers import pose_lm as port_pose
+    from eao_slam_tpu.config import CapacityConfig, tum3_config
+    from eao_slam_tpu.geometry import se3
+    from eao_slam_tpu.geometry.camera import in_image, project
+    from eao_slam_tpu.ops import matching
+    from eao_slam_tpu.runtime import tracker as jtracker, tracking_kernels as tk
+    from eao_slam_tpu.runtime.frame import frame_from_image
+    from eao_slam_tpu.solvers import pose_lm
+
+    def port(a, f64=False):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.as_tensor(np.array(a, np.float64 if f64 and a.dtype == np.float32
+                                        else a.dtype))
+
+    tri, lms, parted_pts, moved = [], [], [], []
+    tri_fn, mm_fn, lm = jtracker.triangulate_with_neighbor, tk.track_motion_model, jax.jit(
+        pose_lm.optimize_pose, static_argnums=0)
+
+    def tri_spy(cam, *args):
+        out = tri_fn(cam, *args)
+        p = port_lm.triangulate_with_neighbor(PORT_TUM3, *(port(a) for a in args))
+        parted = np.flatnonzero(np.asarray(out.good) != p.good.numpy())
+        tri.append([int(np.asarray(out.good).sum()), len(parted)])
+        T1, T2 = (np.asarray(args[i], np.float64) for i in (0, 6))
+        for X in (np.asarray(out.points)[parted], p.points.numpy()[parted]):
+            X = X.astype(np.float64)
+            depth = np.minimum((X @ T1[:, :3].T + T1[:, 3])[:, 2], (X @ T2[:, :3].T + T2[:, 3])[:, 2])
+            c1, c2 = X + T1[:, :3].T @ T1[:, 3], X + T2[:, :3].T @ T2[:, 3]
+            cos = (c1 * c2).sum(-1) / (np.linalg.norm(c1, axis=-1) * np.linalg.norm(c2, axis=-1))
+            parted_pts.extend(zip(depth.tolist(), cos.tolist()))
+        if len(parted):
+            moved.append(float(np.abs(np.asarray(out.points)[parted]
+                                      - p.points.numpy()[parted]).max()))
+        return out
+
+    def mm_spy(cam, pt_pos, pt_valid, T_pred, last_kp, last_desc, last_octave, last_angle,
+               last_valid, last_pt, kp, desc, octave, angle, valid, scale2, radius=15.0):
+        out = mm_fn(cam, pt_pos, pt_valid, T_pred, last_kp, last_desc, last_octave, last_angle,
+                    last_valid, last_pt, kp, desc, octave, angle, valid, scale2, radius=radius)
+        Xw = pt_pos[jnp.clip(last_pt, 0, pt_pos.shape[0] - 1)]
+        xc = se3.apply(T_pred, Xw)
+        proj = project(cam, xc)
+        q = (last_valid & (last_pt >= 0) & pt_valid[jnp.clip(last_pt, 0, pt_pos.shape[0] - 1)]
+             & (xc[..., 2] > 0.05) & in_image(cam, proj))
+        lv = jnp.clip(last_octave, 0, scale2.shape[0] - 1)
+        idx, _, ok = matching.search_by_projection(
+            proj, last_octave, last_desc, q, kp, octave, desc, valid,
+            radius * jnp.sqrt(scale2)[lv], query_angle=last_angle, kp_angle=angle,
+            max_dist=matching.TH_HIGH, ratio=0.9, check_rotation=True)
+        args = [np.asarray(x) for x in (T_pred, Xw, kp[idx], 1.0 / scale2[jnp.clip(
+            octave[idx], 0, scale2.shape[0] - 1)], ok)]
+        r = lm(cam, *(jnp.asarray(a) for a in args))
+        p32 = port_pose.optimize_pose(PORT_TUM3, *(port(a) for a in args))
+        p64 = port_pose.optimize_pose(PORT_TUM3, *(port(a, True) for a in args))
+        T64 = p64.T.numpy()
+        lms.append([float(np.abs(np.asarray(r.T) - T64).max()),
+                    float(np.abs(p32.T.numpy() - T64).max()),
+                    int((np.asarray(r.inliers) != p64.inliers.numpy()).sum()),
+                    int((p32.inliers.numpy() != p64.inliers.numpy()).sum())])
+        return out
+
+    cap = dict(max_keyframes=128, max_points=8192, max_features=1024, local_ba_points=2048)
+    ref = jtracker.MonoTracker(tum3_config().replace(capacity=CapacityConfig(**cap), seed=seed))
+    jtracker.triangulate_with_neighbor, tk.track_motion_model = tri_spy, mm_spy
+    try:
+        for k in range(n_frames):
+            ref.track(frame_from_image(ref.cfg, images[k].astype(np.float32)), float(ts[k]))
+    finally:
+        jtracker.triangulate_with_neighbor, tk.track_motion_model = tri_fn, mm_fn
+    t, m = np.array(tri), np.array(lms)
+    return {"seed": seed, "stage_audit": True, "triangulations": len(t),
+            "triangulated_points": int(t[:, 0].sum()), "triangulations_that_differ":
+            int((t[:, 1] > 0).sum()), "points_that_differ": int(t[:, 1].sum()),
+            "their_depth_min_max": [min(d for d, _ in parted_pts), max(d for d, _ in parted_pts)]
+            if parted_pts else None,
+            "their_parallax_cos": sorted({round(c, 5) for d, c in parted_pts if d > 0.1}),
+            "their_largest_move": max(moved, default=0.0), "pose_lms": len(m),
+            "median_dist_from_float64": {"reference": float(np.median(m[:, 0])),
+                                         "port": float(np.median(m[:, 1]))},
+            "nearer_float64": {"reference": int((m[:, 0] < m[:, 1]).sum()),
+                               "port": int((m[:, 1] < m[:, 0]).sum())},
+            "inlier_flips_against_float64": {"reference": int(m[:, 2].sum()),
+                                             "port": int(m[:, 3].sum())}}
 
 
 def interactive_run(seed: int, images, ts, gt, flag: str = "None", boxes=None,
@@ -651,7 +811,11 @@ def main() -> None:
                    help="with --interactive: the reference's tracker on the port's ORB features")
     p.add_argument("--lockstep", action="store_true",
                    help="with --interactive: the port one step from the reference's state")
-    p.add_argument("--frames", type=int, default=100, help="--lockstep: frames to run")
+    p.add_argument("--stage-audit", action="store_true",
+                   help="with --interactive: the reference's triangulations and motion-model "
+                        "pose LMs through the port on the same inputs")
+    p.add_argument("--frames", type=int, default=100,
+                   help="--lockstep, --stage-audit: frames to run")
     p.add_argument("--cli", action="store_true",
                    help="the reference's mono_tum driver on the arc as a TUM directory")
     p.add_argument("--cli-test", metavar="DIR",
@@ -663,6 +827,8 @@ def main() -> None:
                    help="--cli-test: N init draws per attempt in each package, no run_mono_tum")
     p.add_argument("--record-init", metavar="DIR",
                    help="with --interactive or --cli-test: write each run's init draws to DIR")
+    p.add_argument("--eager", action="store_true",
+                   help="with --interactive: every seed inside jax.disable_jit()")
     p.add_argument("--modes", action="store_true",
                    help="with --interactive: kidnap, localization mode and reset after the pass")
     args = p.parse_args()
@@ -705,12 +871,18 @@ def main() -> None:
         for seed in args.seeds:
             print(json.dumps(lockstep_run(seed, images, ts, args.frames)), flush=True)
         return
+    if args.stage_audit:
+        for seed in args.seeds:
+            print(json.dumps(stage_audit(seed, images, ts, args.frames)), flush=True)
+        return
     port_frames = port_orb_frames(images) if args.port_orb else None
     runs = []
     for seed in args.seeds:
         if args.interactive:
-            r = interactive_run(seed, images, ts, gt, args.flag, boxes, args.modes,
-                                args.record_init, port_frames)
+            with jax.disable_jit(args.eager):
+                r = interactive_run(seed, images, ts, gt, args.flag, boxes, args.modes,
+                                    args.record_init, port_frames)
+            r["eager"] = args.eager
         else:
             r = run(seed, images, ts, gt, args.flag, boxes, scene)
         runs.append(r)

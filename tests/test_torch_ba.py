@@ -127,6 +127,22 @@ def test_inv3x3_of_a_block_whose_adjugate_terms_overflow_float32():
     np.testing.assert_allclose(got[1], ref[1], rtol=1e-5)
 
 
+def _recorded_window_map():
+    """``tests/ba_near_camera_point.npz`` (the interactive tracker's map at
+    the keyframe of frame 23 on the bench arc, seed 1: eight keyframes and
+    their 1088 points): the file, the MapState fields it sets, and the
+    capacity that holds them."""
+    import os
+
+    f = np.load(os.path.join(os.path.dirname(__file__), "ba_near_camera_point.npz"))
+    K, F = f["kf_pt_idx"].shape
+    P = len(f["pt_pos"])
+    fields = dict(kf_pose=f["kf_pose"], kf_kp=f["kf_kp"], kf_octave=f["kf_octave"].astype(np.int32),
+                  kf_kp_valid=f["kf_kp_valid"], kf_pt_idx=f["kf_pt_idx"].astype(np.int32),
+                  kf_valid=np.ones(K, bool), pt_pos=f["pt_pos"], pt_valid=np.ones(P, bool))
+    return f, fields, dict(max_keyframes=K, max_points=P, max_features=F, local_ba_points=2048)
+
+
 def test_windowed_ba_with_a_point_at_a_camera():
     """A real window: the interactive tracker's windowed BA at the keyframe
     of frame 23 on the bench arc, seed 1 (the reference's map, its eight
@@ -136,8 +152,6 @@ def test_windowed_ba_with_a_point_at_a_camera():
     where the reference's drops 3, and runs of the interactive tracker kept
     sparser maps. Now both freeze that point, drop the same observations
     and agree on the poses to 1e-4 (measured 7e-7 after 5 iterations)."""
-    import os
-
     from eao_slam_torch.config import CapacityConfig as TC
     from eao_slam_torch.runtime import local_mapping as tlm
     from eao_slam_torch.runtime.map_state import empty_map_state as t_empty
@@ -145,13 +159,8 @@ def test_windowed_ba_with_a_point_at_a_camera():
     from eao_slam_tpu.runtime import local_mapping as jlm
     from eao_slam_tpu.runtime.map_state import empty_map_state as j_empty
 
-    f = np.load(os.path.join(os.path.dirname(__file__), "ba_near_camera_point.npz"))
-    K, F = f["kf_pt_idx"].shape
-    P = len(f["pt_pos"])
-    fields = dict(kf_pose=f["kf_pose"], kf_kp=f["kf_kp"], kf_octave=f["kf_octave"].astype(np.int32),
-                  kf_kp_valid=f["kf_kp_valid"], kf_pt_idx=f["kf_pt_idx"].astype(np.int32),
-                  kf_valid=np.ones(K, bool), pt_pos=f["pt_pos"], pt_valid=np.ones(P, bool))
-    cap = dict(max_keyframes=K, max_points=P, max_features=F, local_ba_points=2048)
+    f, fields, cap = _recorded_window_map()
+    K = cap["max_keyframes"]
     jm = j_empty(JC(**cap))._replace(**{k: jnp.asarray(v) for k, v in fields.items()})
     tm = t_empty(TC(**cap), "cpu")._replace(**{k: t(v) for k, v in fields.items()})
     window, fixed = list(range(K)), [int(x) for x in f["fixed"]]
@@ -160,3 +169,84 @@ def test_windowed_ba_with_a_point_at_a_camera():
     assert int(rj.drop_obs.sum()) == 3
     np.testing.assert_array_equal(np.asarray(rt.drop_obs), rj.drop_obs)
     np.testing.assert_allclose(n(rt.poses), np.asarray(rj.poses), atol=1e-4)
+
+
+def _recorded_window():
+    """The BAProblem that the port's run_local_ba builds from the recorded
+    window (``_recorded_window_map``) and the same problem for the
+    reference."""
+    from eao_slam_torch.config import CapacityConfig as TC
+    from eao_slam_torch.runtime import local_mapping as tlm
+    from eao_slam_torch.runtime.map_state import empty_map_state as t_empty
+
+    f, fields, cap = _recorded_window_map()
+    K = cap["max_keyframes"]
+    tm = t_empty(TC(**cap), "cpu")._replace(**{k: t(v) for k, v in fields.items()})
+    seen = []
+
+    def spy(cam, prob):
+        seen.append(prob)
+        return tba.local_ba(cam, prob)
+
+    tlm.run_local_ba(TCAM, tm, list(range(K)), [int(x) for x in f["fixed"]], f["scale2"], 2048,
+                     solver=spy)
+    tprob = seen[0]
+    return jba.BAProblem(**{k: jnp.asarray(n(v)) for k, v in tprob._asdict().items()}), tprob
+
+
+def test_window_assembly_parts_at_the_reference_bf16_split():
+    """Where the windowed BA's normal equations part, on a recorded window
+    (8 keyframes, 2048 point slots, 8192 observation slots): given the
+    reference's own per-observation terms, the port's float64 sum of the
+    exact float32 terms lies 1e-6 to 3e-5 of each block's largest entry from
+    the reference's blocks (measured 1.8e-6 to 1.2e-5): that is the
+    reference's one-hot matmul, which splits every term into two bfloat16
+    halves (about 16 mantissa bits, 2^-17 = 7.6e-6 of a term). Rounded so
+    (``port_ate_spread.ref_round``, what ``--ref-ba-rounding`` feeds the
+    port's assembly), the port's sum equals the reference's Hpp, Wcp and
+    bp bit for bit, and Hcc and bc within 2e-7 of their largest entry
+    (measured 1.1e-7 and 8.8e-8: the reference accumulates hundreds of
+    terms a keyframe in float32, the port in float64). Pinned: the port
+    keeps its float64 sum of exact terms; with the terms rounded so, its
+    interactive ATE spread over 40 seeds does not move (PERF.md)."""
+    import jax
+    import torch
+
+    from port_ate_spread import ref_round
+
+    jprob, tprob = _recorded_window()
+
+    @jax.jit
+    def terms(prob):
+        r, Jc, Jp, ok = jba._residuals(JCAM, prob, prob.poses, prob.points)
+        w = jba._weights(prob, r, ok)[0]
+        wJc, wJp = Jc * w[:, None, None], Jp * w[:, None, None]
+        O = r.shape[0]
+        return (jnp.einsum("oki,okj->oij", wJc, Jc).reshape(O, 36),
+                jnp.einsum("oki,okj->oij", wJp, Jp).reshape(O, 9),
+                jnp.einsum("oki,okj->oij", wJc, Jp).reshape(O, 18),
+                jnp.einsum("oki,ok->oi", wJc, r), jnp.einsum("oki,ok->oi", wJp, r))
+
+    want = [np.asarray(x) for x in jax.jit(jba._lm_system, static_argnums=0)(
+        JCAM, jprob, jprob.poses, jprob.points, jba._build_gather(jprob))[:5]]
+    occ, opp, ocp, obc, obp = (torch.as_tensor(np.asarray(x)) for x in terms(jprob))
+    K, P = tprob.poses.shape[0], tprob.points.shape[0]
+    kf, pt = tprob.kf_idx.long(), tprob.pt_idx.long()
+
+    def blocks(rnd):
+        def seg(rows, idx, x):
+            x = ref_round(x) if rnd else x
+            out = torch.zeros((rows, x.shape[1]), dtype=torch.float64)
+            return n(out.index_add_(0, idx, x.double()).float())
+        return [seg(K, kf, occ).reshape(K, 6, 6), seg(P, pt, opp).reshape(P, 3, 3),
+                seg(K * P, kf * P + pt, ocp).reshape(K, P, 6, 3), seg(K, kf, obc), seg(P, pt, obp)]
+
+    names = ("Hcc", "Hpp", "Wcp", "bc", "bp")
+    for name, got, ref in zip(names, blocks(False), want):
+        rel = np.abs(got - ref).max() / np.abs(ref).max()
+        assert 1e-6 < rel < 3e-5, (name, rel)
+    for name, got, ref in zip(names, blocks(True), want):
+        if name in ("Hpp", "Wcp", "bp"):
+            np.testing.assert_array_equal(got, ref, err_msg=name)
+        else:
+            assert np.abs(got - ref).max() <= 2e-7 * np.abs(ref).max(), name

@@ -61,9 +61,86 @@ def test_camera_parity():
                                   n(jcam.in_image(jcam.TUM3, jnp.asarray(uv), 5.0)))
     np.testing.assert_array_equal(n(tcam.TUM3.K()), n(jcam.TUM3.K))
     # a distorted lens exercises the fixed-point undistortion
-    dist_t = tcam.Camera(*jcam.TUM1)
-    np.testing.assert_allclose(n(tcam.undistort_points(dist_t, t(uv))),
+    np.testing.assert_allclose(n(tcam.undistort_points(tcam.TUM1, t(uv))),
                                n(jcam.undistort_points(jcam.TUM1, jnp.asarray(uv))), atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["TUM1", "TUM2"])
+def test_distorted_presets_parity(name):
+    """The TUM freiburg1/2 presets carry the reference's intrinsics and
+    distortion, and undistort as the reference does (1e-3 px, as above)."""
+    tc, jc = getattr(tcam, name), getattr(jcam, name)
+    assert tuple(tc) == tuple(jc) and tc.has_distortion
+    xn = np.random.default_rng(5).uniform(-0.3, 0.3, (256, 2)).astype(np.float32)
+    np.testing.assert_allclose(n(tcam.distort_normalized(tc, t(xn))),
+                               n(jcam.distort_normalized(jc, jnp.asarray(xn))), atol=ATOL)
+    uv = xn * np.float32([tc.fx, tc.fy]) + np.float32([tc.cx, tc.cy])
+    np.testing.assert_allclose(n(tcam.undistort_points(tc, t(uv))),
+                               n(jcam.undistort_points(jc, jnp.asarray(uv))), atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["TUM1", "TUM3"])
+def test_backproject_parity(name):
+    """backproject is the reference's three elementwise float32 operations:
+    equal bit for bit; project(backproject) returns the pixels to 1e-3 px."""
+    tc, jc = getattr(tcam, name), getattr(jcam, name)
+    rng = np.random.default_rng(6)
+    uv = rng.uniform(0, 640, (128, 2)).astype(np.float32)
+    d = rng.uniform(0.5, 5.0, 128).astype(np.float32)
+    xc = n(tcam.backproject(tc, t(uv), t(d)))
+    np.testing.assert_array_equal(xc, n(jcam.backproject(jc, jnp.asarray(uv), jnp.asarray(d))))
+    np.testing.assert_allclose(n(tcam.project(tc, t(xc))), uv, atol=1e-3)
+
+
+def _far_from_so3(seed):
+    """Rotations scaled by distinct singular values in [0.5, 2] plus noise,
+    a quarter of them reflected (det < 0), and translations."""
+    rng = np.random.default_rng(seed)
+    R = np.asarray(jso3.exp(jnp.asarray(rng.normal(0, 1.0, (64, 3)), jnp.float32)))
+    s = np.sort(rng.uniform(0.5, 2.0, (64, 3)), 1)[:, ::-1] * [1.0, 0.8, 0.6]
+    M = (R * s[:, None, :] + rng.normal(0, 0.05, (64, 3, 3))).astype(np.float32)
+    M[:16, :, 2] *= -1.0
+    return np.concatenate([M, rng.normal(0, 2, (64, 3, 1))], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_orthonormalize_svd_parity(seed):
+    """The SVD projection onto SO(3): within 1e-5 of the reference (its
+    LAPACK and torch's pick other singular-vector signs; the product is
+    unique for distinct singular values), det +1 and R^T R = I."""
+    T = _far_from_so3(seed)
+    out = n(tse3.orthonormalize_svd(t(T)))
+    np.testing.assert_allclose(out, n(jse3.orthonormalize_svd(jnp.asarray(T))), atol=ATOL)
+    R = out[:, :, :3]
+    np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-5)
+    np.testing.assert_allclose(R.transpose(0, 2, 1) @ R, np.broadcast_to(np.eye(3), R.shape),
+                               atol=1e-5)
+    np.testing.assert_array_equal(out[:, :, 3], T[:, :, 3])
+
+
+def test_quat_trans_parity(twists):
+    """to_quat_trans / from_quat_trans (wxyz, TUM order) against the
+    reference's to 1e-5, and back to the pose."""
+    T = np.asarray(jse3.exp(jnp.asarray(twists)))
+    q, tr = tse3.to_quat_trans(t(T))
+    jq, jt = jse3.to_quat_trans(jnp.asarray(T))
+    np.testing.assert_allclose(n(q), n(jq), atol=ATOL)
+    np.testing.assert_array_equal(n(tr), n(jt))
+    assert (n(q)[:, 0] >= 0).all()
+    back = n(tse3.from_quat_trans(q, tr))
+    np.testing.assert_allclose(back, n(jse3.from_quat_trans(jq, jt)), atol=ATOL)
+    np.testing.assert_allclose(back, T, atol=ATOL)
+
+
+def test_rot_y_parity():
+    """rot_y against the reference's to 1e-6 over yaws in [-2 pi, 2 pi],
+    batched, and a rotation about Y (the Y row and column are e_y)."""
+    yaw = np.random.default_rng(9).uniform(-2 * np.pi, 2 * np.pi, (4, 16)).astype(np.float32)
+    R = n(tso3.rot_y(t(yaw)))
+    assert R.shape == (4, 16, 3, 3)
+    np.testing.assert_allclose(R, n(jso3.rot_y(jnp.asarray(yaw))), atol=1e-6)
+    np.testing.assert_array_equal(R[..., 1, :], np.broadcast_to([0, 1, 0], R.shape[:-2] + (3,)))
+    np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-6)
 
 
 def test_triangulate_parity():

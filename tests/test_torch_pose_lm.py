@@ -91,3 +91,44 @@ def test_tracking_steps_on_bootstrapped_map():
     vt = ttk.count_visible(T["pt_pos"], T["pt_valid"], t(c.T_last), cam.fx, cam.fy, cam.cx,
                            cam.cy, cam.width, cam.height)
     assert int(vt) == int(vj)
+
+
+def test_recorded_motion_model_lm_parts_at_a_chi2_threshold():
+    """The first tracking step where the two packages' decisions part, from
+    one state, on the interactive bench arc (RANSAC seed 4, frame 100):
+    the motion model's matches are equal, and the pose LM on them
+    (``tests/pose_lm_seed4_frame100.npz``: its pose prior, 356 matches)
+    keeps 339 inliers in both, but two of them differ and the poses lie
+    4.7e-4 apart. The cause is float32 rounding at a threshold, not a
+    formulation: after the second round the poses differ by 1e-6, and one
+    observation's chi2 reads 5.99213 in the reference and 5.99061 in the
+    port, either side of 5.991, so the third round runs on other inlier
+    sets. Taken in float64, the port lands within 1e-6 of the reference
+    (measured 4.4e-8), as does the reference run eagerly (3e-8). Pinned:
+    no stage is repaired."""
+    import jax
+
+    f = np.load(__file__.rsplit("/", 1)[0] + "/pose_lm_seed4_frame100.npz")
+    args = [f[k] for k in ("T0", "Xw", "uv", "inv_sigma2", "valid")]
+    rj = jlm.optimize_pose(JCAM, *(jnp.asarray(a) for a in args))
+    rt = tlm.optimize_pose(TCAM, *(t(a) for a in args))
+    r64 = tlm.optimize_pose(TCAM, *(t(a.astype(np.float64) if a.dtype == np.float32 else a)
+                                    for a in args))
+    with jax.disable_jit():
+        eager = jlm.optimize_pose(JCAM, *(jnp.asarray(a) for a in args))
+    assert int(rj.n_inliers) == int(rt.n_inliers) == 339
+    assert int((np.asarray(rj.inliers) != n(rt.inliers)).sum()) == 2
+    assert np.abs(n(rt.T) - np.asarray(rj.T)).max() > 1e-4          # measured 4.7e-4
+    np.testing.assert_allclose(n(r64.T), np.asarray(rj.T), atol=1e-6)
+    np.testing.assert_array_equal(n(r64.inliers), np.asarray(rj.inliers))
+    np.testing.assert_allclose(np.asarray(eager.T), np.asarray(rj.T), atol=1e-6)
+    # after two rounds the poses agree to float32 noise, and one
+    # observation's chi2 straddles the threshold
+    sj = jlm.optimize_pose(JCAM, *(jnp.asarray(a) for a in args), schedule=(4, 3))
+    st = tlm.optimize_pose(TCAM, *(t(a) for a in args), schedule=(4, 3))
+    assert np.abs(n(st.T) - np.asarray(sj.T)).max() < 2e-6             # measured 1.0e-6
+    parted = np.flatnonzero(np.asarray(sj.inliers) != n(st.inliers))
+    assert len(parted) == 1
+    c_ref, c_port = float(np.asarray(sj.chi2)[parted[0]]), float(n(st.chi2)[parted[0]])
+    assert abs(c_ref - jlm.CHI2_MONO) < 2e-3 and abs(c_port - jlm.CHI2_MONO) < 2e-3
+    assert (c_ref < jlm.CHI2_MONO) != (c_port < jlm.CHI2_MONO)
