@@ -9,7 +9,12 @@ groundtruth.txt aligns the map with the ground. ``demo`` runs on the
 synthetic room scene, no dataset needed. Each prints one JSON line of
 statistics, the image decoder it used among them (``loader_backend``).
 Everything runs on the CUDA card; ``--device cpu`` (anywhere in the
-arguments) runs it on the CPU.
+arguments) runs it on the CPU. ``--trace PATH`` (anywhere in the
+arguments) turns the port's tracer on for the run (``utils/profiling.py``)
+and at the end writes its stage tree and counters to PATH as JSON: per
+chunk and summed, each stage's seconds, self seconds, calls, parent and
+counters (frames, keyframes, motion fallbacks, host synchronisations on
+the card); the statistics line then carries ``trace_path``.
 
 Usage:
     python -m eao_slam_torch.cli mono_tum <flag> <sequence_path> [out_dir]
@@ -17,6 +22,7 @@ Usage:
     python -m eao_slam_torch.cli mono_euroc <flag> <image_dir> [times_file|-] [out_dir]
     python -m eao_slam_torch.cli eval_cloud <est.obj/ply> <gt.obj/ply>
     python -m eao_slam_torch.cli demo [flag] [n_frames]
+    (each also with --device cpu, --trace PATH)
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 from eao_slam_torch.config import CapacityConfig, tum3_config
 from eao_slam_torch.io.native_loader import SequenceLoader
 from eao_slam_torch.system import System
+from eao_slam_torch.utils.profiling import TRACER
 
 
 def _track_sequence(sysm: System, directory: str, lst, boxes_of=None) -> str:
@@ -158,41 +165,65 @@ def _export(sysm: System, out_dir: str) -> dict:
     return stats
 
 
+def _option(argv: list, name: str):
+    """The value of ``name VALUE`` anywhere in ``argv`` (both removed), or
+    None."""
+    if name not in argv:
+        return None
+    k = argv.index(name)
+    value = argv[k + 1]
+    del argv[k:k + 2]
+    return value
+
+
 def main(argv=None) -> int:
     argv = list(argv if argv is not None else sys.argv[1:])
-    device = None
-    if "--device" in argv:
-        k = argv.index("--device")
-        device = argv[k + 1]
-        del argv[k:k + 2]
+    device = _option(argv, "--device")
+    trace_path = _option(argv, "--trace")
     if not argv:
         print(__doc__)
         return 1
+    if trace_path is not None:
+        TRACER.reset()
+        TRACER.enable()
+    try:
+        stats = _run(argv, device)
+    finally:
+        if trace_path is not None:
+            TRACER.disable()
+    if stats is None:
+        print(__doc__)
+        return 1
+    if trace_path is not None:
+        TRACER.write_trace(trace_path)
+        stats["trace_path"] = trace_path
+    print(json.dumps(stats))
+    return 0
+
+
+def _run(argv: list, device):
+    """The command's statistics, or None for an unknown command."""
     cmd = argv[0]
     if cmd == "mono_tum":
         out = argv[3] if len(argv) > 3 else "."
-        stats = run_mono_tum(argv[1], argv[2], out, device=device)
-    elif cmd == "mono_kitti":
+        return run_mono_tum(argv[1], argv[2], out, device=device)
+    if cmd == "mono_kitti":
         num = int(argv[3]) if len(argv) > 3 else 0
         out = argv[4] if len(argv) > 4 else "."
-        stats = run_mono_kitti(argv[1], argv[2], num, out, device=device)
-    elif cmd == "mono_euroc":
+        return run_mono_kitti(argv[1], argv[2], num, out, device=device)
+    if cmd == "mono_euroc":
         times = argv[3] if len(argv) > 3 and argv[3] != "-" else None
         out = argv[4] if len(argv) > 4 else "."
-        stats = run_mono_euroc(argv[1], argv[2], times, out, device=device)
-    elif cmd == "eval_cloud":
+        return run_mono_euroc(argv[1], argv[2], times, out, device=device)
+    if cmd == "eval_cloud":
         from eao_slam_torch.evaluation import evaluate_reconstruction
 
-        stats = evaluate_reconstruction(argv[1], argv[2], device=device)
-    elif cmd == "demo":
+        return evaluate_reconstruction(argv[1], argv[2], device=device)
+    if cmd == "demo":
         flag = argv[1] if len(argv) > 1 else "EAO"
         n = int(argv[2]) if len(argv) > 2 else 60
-        stats = run_demo(flag, n, device=device)
-    else:
-        print(__doc__)
-        return 1
-    print(json.dumps(stats))
-    return 0
+        return run_demo(flag, n, device=device)
+    return None
 
 
 if __name__ == "__main__":

@@ -19,6 +19,16 @@ here it is an eager per-frame Python loop whose branches are decided on
 the host (two small readbacks per frame, one more per keyframe, one more
 when the object pass ran and the keyframe decision needs its verdict).
 Tensors stay on the tracker's device throughout.
+
+The layers are stages of the port's tracer (``utils/profiling.TRACER``,
+off unless turned on), one record a chunk: ``chunk.extract``,
+``chunk.track`` with ``frame.motion``, ``frame.local_map``,
+``frame.objects``, ``frame.keyframe`` (``keyframe.triangulate``,
+``keyframe.fuse``), ``chunk.window_ba``, ``chunk.iforest`` and
+``chunk.readback`` inside it, then ``chunk.record`` and the passes
+``pass.merge_objects``, ``pass.maintain``, ``pass.close_loops``,
+``pass.relocalize``; with the counters ``frames``, ``keyframes`` and
+``motion_fallbacks``.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from eao_slam_torch.runtime.tracker import MonoTracker
 from eao_slam_torch.runtime.tracking_kernels import set_last_wins, set_rows_drop
 from eao_slam_torch.solvers.ba import BAProblem, local_ba
 from eao_slam_torch.solvers.pnp import pnp_ransac
+from eao_slam_torch.utils.profiling import TRACER
 
 OK = 2
 LOST = 3
@@ -314,27 +325,29 @@ def make_chunk_step(cfg: SystemConfig):
         hits = member[torch.clamp(rows, 0, P - 1).long()] & (rows >= 0)
         weights = hits.sum(1).to(torch.int32) * rvalid
         order = torch.sort(-weights, stable=True).indices
-        for t in range(n_tri_neighbors):
-            nb = recent[order[t]]
-            w_nb = weights[order[t]]
-            tri = triangulate_with_neighbor(
-                cam, m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot],
-                m.kf_octave[slot], m.kf_kp_valid[slot], m.kf_pt_idx[slot],
-                m.kf_pose[nb], m.kf_kp[nb], m.kf_desc[nb],
-                m.kf_octave[nb], m.kf_kp_valid[nb], m.kf_pt_idx[nb], scale2,
-            )
-            use = (w_nb >= mcfg.min_covis_weight) & (nb != slot)
-            tri = tri._replace(good=tri.good & use)
-            m, pt_count = _insert_point_rows(m, slot, nb, tri, pt_count, scale_factors)
+        with TRACER.stage("keyframe.triangulate"):
+            for t in range(n_tri_neighbors):
+                nb = recent[order[t]]
+                w_nb = weights[order[t]]
+                tri = triangulate_with_neighbor(
+                    cam, m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot],
+                    m.kf_octave[slot], m.kf_kp_valid[slot], m.kf_pt_idx[slot],
+                    m.kf_pose[nb], m.kf_kp[nb], m.kf_desc[nb],
+                    m.kf_octave[nb], m.kf_kp_valid[nb], m.kf_pt_idx[nb], scale2,
+                )
+                use = (w_nb >= mcfg.min_covis_weight) & (nb != slot)
+                tri = tri._replace(good=tri.good & use)
+                m, pt_count = _insert_point_rows(m, slot, nb, tri, pt_count, scale_factors)
 
-        fused = fuse_into_keyframe(
-            cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist, m.pt_max_dist,
-            m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot], m.kf_octave[slot],
-            m.kf_kp_valid[slot], m.kf_pt_idx[slot], scale2,
-        )
-        kf_pt_idx = m.kf_pt_idx.clone()
-        kf_pt_idx[slot] = fused
-        m = m._replace(kf_pt_idx=kf_pt_idx)
+        with TRACER.stage("keyframe.fuse"):
+            fused = fuse_into_keyframe(
+                cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist, m.pt_max_dist,
+                m.kf_pose[slot], m.kf_kp[slot], m.kf_desc[slot], m.kf_octave[slot],
+                m.kf_kp_valid[slot], m.kf_pt_idx[slot], scale2,
+            )
+            kf_pt_idx = m.kf_pt_idx.clone()
+            kf_pt_idx[slot] = fused
+            m = m._replace(kf_pt_idx=kf_pt_idx)
         return m, kf_count + 1, pt_count, T, fused
 
     def step(carry: ChunkCarry, frame: Frame, ts: float, has_boxes: bool = False):
@@ -355,34 +368,33 @@ def make_chunk_step(cfg: SystemConfig):
                 m.kf_desc[ref], m.kf_kp_valid[ref], m.kf_pt_idx[ref],
                 kp, desc, octave, valid, scale2)
 
-        if carry.state == OK:
-            T_pred = se3.compose(carry.velocity, carry.T_last) if carry.vel_ok else carry.T_last
-            r1 = tk.track_motion_model(
-                cam, m.pt_pos, m.pt_valid, T_pred,
-                carry.last_kp, carry.last_desc, carry.last_octave,
-                carry.last_angle, carry.last_valid, carry.last_pt,
-                kp, desc, octave, angle, valid, scale2,
-                radius=cfg.matcher.search_radius_motion)
-            n1 = int(r1.n_inliers)
-            if n1 < tcfg.min_inliers_after_pose:
+        TRACER.count("frames")
+        with TRACER.stage("frame.motion"):
+            if carry.state == OK:
+                T_pred = (se3.compose(carry.velocity, carry.T_last) if carry.vel_ok
+                          else carry.T_last)
+                r1 = tk.track_motion_model(
+                    cam, m.pt_pos, m.pt_valid, T_pred,
+                    carry.last_kp, carry.last_desc, carry.last_octave,
+                    carry.last_angle, carry.last_valid, carry.last_pt,
+                    kp, desc, octave, angle, valid, scale2,
+                    radius=cfg.matcher.search_radius_motion)
+                n1 = int(r1.n_inliers)
+                if n1 < tcfg.min_inliers_after_pose:
+                    TRACER.count("motion_fallbacks")
+                    r1 = ref_kf()
+                    n1 = int(r1.n_inliers)
+            else:   # LOST: retry against the reference keyframe from the last pose
                 r1 = ref_kf()
                 n1 = int(r1.n_inliers)
-        else:   # LOST: retry against the reference keyframe from the last pose
-            r1 = ref_kf()
-            n1 = int(r1.n_inliers)
-        r2 = tk.track_local_map_step(
-            cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_normal,
-            m.pt_min_dist, m.pt_max_dist, r1.T, r1.cur_pt,
-            kp, desc, octave, valid, scale2, n_levels=cfg.orb.n_levels)
-        n2 = int(r2.n_inliers) if n1 >= tcfg.min_inliers_after_pose else 0
+        with TRACER.stage("frame.local_map"):
+            r2 = tk.track_local_map_step(
+                cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_normal,
+                m.pt_min_dist, m.pt_max_dist, r1.T, r1.cur_pt,
+                kp, desc, octave, valid, scale2, n_levels=cfg.orb.n_levels)
+            n2 = int(r2.n_inliers) if n1 >= tcfg.min_inliers_after_pose else 0
         T, cur_pt = r2.T, r2.cur_pt
         tracked = n2 >= tcfg.min_tracked_for_ok
-
-        table = carry.table
-        appear_new = False
-        if table is not None and tracked and has_boxes and carry.allow_kf:
-            m, table, appear_new = object_pass(m, table, T, frame, cur_pt, frame_id,
-                                               carry.obj_rng)
 
         # keyframe policy (Tracking::NeedNewKeyFrame; a new object landmark
         # forces a keyframe, src/Tracking.cc:1850-1897)
@@ -394,14 +406,23 @@ def make_chunk_step(cfg: SystemConfig):
         may_kf = (tracked and carry.allow_kf and n2 > tcfg.min_matches_ref_kf
                   and carry.kf_count < K)
         need_kf = may_kf and (c1 or c2)
-        if may_kf and not need_kf and torch.is_tensor(appear_new):
-            need_kf = bool(appear_new)     # the object pass's one readback
+
+        table = carry.table
+        appear_new = False
+        if table is not None and tracked and has_boxes and carry.allow_kf:
+            with TRACER.stage("frame.objects"):
+                m, table, appear_new = object_pass(m, table, T, frame, cur_pt, frame_id,
+                                                   carry.obj_rng)
+                if may_kf and not need_kf:
+                    need_kf = bool(appear_new)     # the object pass's one readback
 
         kf_count, pt_count = carry.kf_count, carry.pt_count
         if need_kf:
-            m, kf_count, pt_count, T, cur_pt = kf_branch(
-                m, kf_count, pt_count, frame, ts, frame_id, T, cur_pt,
-                scale2, scale_factors, appear_new)
+            TRACER.count("keyframes")
+            with TRACER.stage("frame.keyframe"):
+                m, kf_count, pt_count, T, cur_pt = kf_branch(
+                    m, kf_count, pt_count, frame, ts, frame_id, T, cur_pt,
+                    scale2, scale_factors, appear_new)
         vel_ok = tracked and not need_kf and carry.state == OK
         velocity = (se3.compose(T, se3.inverse(carry.T_last)) if vel_ok
                     else torch.eye(3, 4, dtype=torch.float32, device=dev))
@@ -436,6 +457,7 @@ def make_track_chunk(cfg: SystemConfig):
     Pl = cfg.capacity.local_ba_points
     psi, depth = psi_depth_for(N_OBJ_SAMPLE)
 
+    @TRACER.staged("chunk.track")
     def track_chunk(carry: ChunkCarry, batch: FrameBatch):
         fp32_solvers()
         C = batch.kp.shape[0]
@@ -465,41 +487,44 @@ def make_track_chunk(cfg: SystemConfig):
             outs.append(out)
         is_kf = np.array([o[3] for o in outs], bool)
         if is_kf.any():
-            m = carry.m
-            scale2 = scale_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor, m.pt_pos.device)
-            m = _window_ba(cam, m, carry.kf_count, W, Pl, scale2)
-            m = _cull_points(m, carry.kf_count - 1)
-            K = m.kf_pose.shape[0]
-            newest = min(max(carry.kf_count - 1, 0), K - 1)
-            if cfg.mapping.bidirectional_fuse:
-                fused = fuse_into_keyframe(
-                    cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist,
-                    m.pt_max_dist, m.kf_pose[newest], m.kf_kp[newest],
-                    m.kf_desc[newest], m.kf_octave[newest],
-                    m.kf_kp_valid[newest], m.kf_pt_idx[newest], scale2)
-                kf_pt_idx = m.kf_pt_idx.clone()
-                kf_pt_idx[newest] = fused
-                m = m._replace(kf_pt_idx=kf_pt_idx)
-            carry = carry._replace(m=m)
+            with TRACER.stage("chunk.window_ba"):
+                m = carry.m
+                scale2 = scale_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor, m.pt_pos.device)
+                m = _window_ba(cam, m, carry.kf_count, W, Pl, scale2)
+                m = _cull_points(m, carry.kf_count - 1)
+                K = m.kf_pose.shape[0]
+                newest = min(max(carry.kf_count - 1, 0), K - 1)
+                if cfg.mapping.bidirectional_fuse:
+                    fused = fuse_into_keyframe(
+                        cam, m.pt_pos, m.pt_valid, m.pt_desc, m.pt_min_dist,
+                        m.pt_max_dist, m.kf_pose[newest], m.kf_kp[newest],
+                        m.kf_desc[newest], m.kf_octave[newest],
+                        m.kf_kp_valid[newest], m.kf_pt_idx[newest], scale2)
+                    kf_pt_idx = m.kf_pt_idx.clone()
+                    kf_pt_idx[newest] = fused
+                    m = m._replace(kf_pt_idx=kf_pt_idx)
+                carry = carry._replace(m=m)
         if carry.table is not None and carry.allow_kf and not cfg.objects.per_frame_iforest:
             # iForest outlier cull over every object updated this chunk
             # (per frame in the C++ reference, src/Object.cc:1202-1309;
             # once per chunk in the reference package); localization mode
             # freezes the object map
             gen = carry.obj_rng
-            m, table = chunk_iforest_cull(
-                cam, carry.m, carry.table, carry.T_last, carry.frame_id - C + 1,
-                lambda mask: draw_iforest(gen, mask, psi, depth), depth)
+            with TRACER.stage("chunk.iforest"):
+                m, table = chunk_iforest_cull(
+                    cam, carry.m, carry.table, carry.T_last, carry.frame_id - C + 1,
+                    lambda mask: draw_iforest(gen, mask, psi, depth), depth)
             carry = carry._replace(m=m, table=table)
-        T = torch.stack([o[0] for o in outs]).cpu().numpy()
-        return carry, ChunkOutputs(
-            T=T,
-            state=np.array([o[1] for o in outs], np.int32),
-            n_inliers=np.array([o[2] for o in outs], np.int32),
-            is_kf=is_kf,
-            kf_count=np.array([o[4] for o in outs], np.int32),
-            pt_count=np.array([o[5] for o in outs], np.int32),
-        )
+        with TRACER.stage("chunk.readback"):
+            T = torch.stack([o[0] for o in outs]).cpu().numpy()
+            return carry, ChunkOutputs(
+                T=T,
+                state=np.array([o[1] for o in outs], np.int32),
+                n_inliers=np.array([o[2] for o in outs], np.int32),
+                is_kf=is_kf,
+                kf_count=np.array([o[4] for o in outs], np.int32),
+                pt_count=np.array([o[5] for o in outs], np.int32),
+            )
 
     return track_chunk
 
@@ -556,8 +581,9 @@ def make_extract_track(cfg: SystemConfig, track_chunk, mesh=None):
         mesh = None
 
     def extract_track(carry, images_u8, timestamps, active=None, boxes=None):
-        return track_chunk(carry, extract_batch(cfg, images_u8, timestamps, active, boxes,
-                                                mesh))
+        with TRACER.stage("chunk.extract"):
+            batch = extract_batch(cfg, images_u8, timestamps, active, boxes, mesh)
+        return track_chunk(carry, batch)
 
     return extract_track
 
@@ -695,6 +721,7 @@ class ChunkedTracker:
         seam); partial chunks mark their live prefix in ``batch.active``."""
         if self.carry is None:
             raise RuntimeError("call bootstrap() until it returns True")
+        TRACER.next_chunk()
         batch = FrameBatch(*(x.to(self.device) if torch.is_tensor(x) else x for x in batch))
         kf_before = self.kf_count_host
         self.carry, outs = self._track_chunk(self.carry, batch)
@@ -720,6 +747,7 @@ class ChunkedTracker:
         passes (a multi-sequence engine defers those)."""
         if self.carry is None:
             raise RuntimeError("call bootstrap() until it returns True")
+        TRACER.next_chunk()
         C = self.chunk
         imgs = np.asarray(images_u8)
         n = int(imgs.shape[0])
@@ -753,6 +781,7 @@ class ChunkedTracker:
         self._between_chunk_passes()
         return outs
 
+    @TRACER.staged("chunk.record")
     def _record_chunk(self, outs: ChunkOutputs, ts, kf_before: int) -> ChunkOutputs:
         """Record the live frames' poses, this chunk's keyframe slots (the
         monotonic allocator: kf_before + running keyframe count) and the
@@ -775,6 +804,7 @@ class ChunkedTracker:
         self._maybe_close_loops()
         self._maybe_relocalize()
 
+    @TRACER.staged("pass.merge_objects")
     def _maybe_merge_objects(self):
         """Object merge and overlap resolution between chunks
         (MergePotentialAssObjs + DealTwoOverlapObjs,
@@ -788,6 +818,7 @@ class ChunkedTracker:
         self.n_object_merges += merged
         self.n_object_kills += killed
 
+    @TRACER.staged("pass.maintain")
     def _maybe_maintain(self):
         """When the monotonic allocators near capacity (within max(8,
         chunk / 2) keyframes or 3 x max_features points), cull redundant
@@ -824,6 +855,7 @@ class ChunkedTracker:
         for cb in self.compaction_listeners:
             cb(kf_remap, pt_remap)
 
+    @TRACER.staged("pass.relocalize")
     def _maybe_relocalize(self):
         """Tracking::Relocalization between chunks: if a chunk ends LOST,
         score the last frame's descriptors against every keyframe's
@@ -874,6 +906,7 @@ class ChunkedTracker:
             self.n_relocalized += 1
             return
 
+    @TRACER.staged("pass.close_loops")
     def _maybe_close_loops(self):
         """Loop detection (+ correction on success) for every keyframe the
         last chunk inserted, at chunk rate. The backlog's signatures come

@@ -54,7 +54,7 @@ from eao_slam_torch.io.tum import GroundTruth, load_groundtruth, lookup_pose_mat
 from eao_slam_torch.runtime.frame import Frame, empty_boxes, frame_from_image
 from eao_slam_torch.runtime.scan_tracker import ChunkedTracker, batch_from_frames
 from eao_slam_torch.runtime.tracker import MonoTracker
-from eao_slam_torch.utils.profiling import StageProfiler
+from eao_slam_torch.utils.profiling import TRACER
 
 OK = 2
 
@@ -100,7 +100,9 @@ class System:
         self._mesh_tris = None
         self._groundtruth: Optional[GroundTruth] = None
         self.timings: list = []      # seconds per track_monocular call
-        self.profiler = StageProfiler()  # named stage timers for the caller's stages
+        # the process's tracer: the chunked path's stages and counters, off
+        # unless turned on (utils/profiling.py)
+        self.profiler = TRACER
 
     @property
     def _armed(self) -> bool:

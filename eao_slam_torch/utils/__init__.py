@@ -1,3 +1,3 @@
-from eao_slam_torch.utils.profiling import StageProfiler, annotate, device_trace
+from eao_slam_torch.utils.profiling import TRACER, StageProfiler
 
-__all__ = ["StageProfiler", "annotate", "device_trace"]
+__all__ = ["TRACER", "StageProfiler"]

@@ -1,17 +1,21 @@
-"""The port's stage profiler and device trace against the reference's
-(``utils/profiling.py``): the same samples give the same summary, report
-and log; ``sync`` passes any nesting of tensors through (and waits for
-their CUDA devices on the card); ``device_trace`` writes a Chrome trace
-through torch.profiler on the CPU, with ``annotate``'s spans in it; every
-System carries a ``profiler``."""
+"""The port's stage profiler against the reference's (``utils/profiling.py``):
+the same samples give the same summary, report and log. The port's tracer
+on its own: off, a stage is a shared no-op and records nothing; on, stages
+nest (parent, self time, calls), counters go to the innermost stage, the
+per-chunk records note torch's profiler, every stage is a ``span:`` range
+of torch's profiler, synchronising-operation warnings are counted under
+the innermost stage and kept from the user's warnings, and ``enable()`` is
+idempotent and keeps what was recorded. Every System carries the tracer as
+``profiler``."""
 
-import json
 import time
+import warnings
 
 import pytest
 import torch
 
-from eao_slam_torch.utils import StageProfiler, annotate, device_trace
+from eao_slam_torch.utils import TRACER, StageProfiler
+from eao_slam_torch.utils.profiling import SYNC_WARNING, merge_records
 from eao_slam_tpu.utils.profiling import StageProfiler as JStageProfiler
 
 SAMPLES = {"track": [0.0123, 0.0101, 0.0400], "extract": [0.002], "ba": [0.5, 0.25]}
@@ -49,18 +53,111 @@ def test_stages_time_and_disable():
     assert off.summary() == {}
 
 
-def test_sync_passes_nested_tensors_through():
-    tree = {"a": (torch.ones(2), [torch.zeros(1), 3]), "b": None}
-    assert StageProfiler.sync(tree) is tree
+def test_an_off_stage_is_one_shared_no_op():
+    off = StageProfiler(enabled=False)
+    assert off.stage("a") is off.stage("b")
+    with off.stage("a"):
+        off.count("n")
+        off.next_chunk()
+
+    @off.staged("f")
+    def f(x):
+        return x + 1
+
+    assert f(1) == 2
+    assert off.chunks == [] and off.summary() == {}
 
 
-def test_device_trace_writes_a_chrome_trace_with_the_spans(tmp_path):
-    with device_trace(str(tmp_path / "trace")) as prof:
-        with annotate("eao_stage"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None
-    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "eao_stage" for e in events)
+def test_nested_stages_parents_self_time_and_counters():
+    p = StageProfiler()
+    p.next_chunk()
+    with p.stage("outer"):
+        p.count("frames")
+        with p.stage("inner"):
+            time.sleep(0.02)
+            p.count("frames", 2)
+        with p.stage("inner"):
+            pass
+    p.count("loose")
+    (rec,) = p.chunks
+    outer, inner = rec["stages"]["outer"], rec["stages"]["inner"]
+    assert outer["parent"] is None and inner["parent"] == "outer"
+    assert outer["calls"] == 1 and inner["calls"] == 2
+    assert inner["seconds"] >= 0.02 and inner["self_seconds"] == inner["seconds"]
+    assert outer["self_seconds"] == pytest.approx(outer["seconds"] - inner["seconds"])
+    assert outer["counts"] == {"frames": 1} and inner["counts"] == {"frames": 2}
+    assert rec["counts"] == {"loose": 1} and rec["profiled"] is False
+    p.next_chunk()
+    with p.stage("outer"):
+        pass
+    total = merge_records(p.chunks)
+    assert len(p.chunks) == 2 and total["stages"]["outer"]["calls"] == 2
+    assert p.trace()["total"]["stages"]["inner"]["counts"] == {"frames": 2}
+
+
+def test_stages_are_profiler_ranges_and_mark_their_chunk():
+    from torch.profiler import ProfilerActivity, profile
+
+    p = StageProfiler()
+    p.next_chunk()
+    with p.stage("quiet"):
+        pass
+    p.next_chunk()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with p.stage("chunk.track"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    names = {e.name for e in prof.events()}
+    assert "span:chunk.track" in names
+    assert [r["profiled"] for r in p.chunks] == [False, True]
+
+
+def test_sync_warnings_are_counted_under_the_innermost_stage():
+    p = StageProfiler()
+    p.enable(count_syncs=True)
+    p.next_chunk()
+    with warnings.catch_warnings(record=True) as shown:
+        warnings.simplefilter("always")
+        with p.stage("outer"):
+            warnings.warn(SYNC_WARNING + " (planted)")
+            with p.stage("inner"):
+                for _ in range(3):
+                    warnings.warn(SYNC_WARNING + " (planted)")
+                warnings.warn("the user's own warning")
+    stages = p.chunks[0]["stages"]
+    assert stages["inner"]["counts"] == {"host_syncs": 3}
+    assert stages["outer"]["counts"] == {"host_syncs": 1}
+    assert [str(w.message) for w in shown] == ["the user's own warning"]
+    p.disable()
+
+
+def test_syncs_are_not_counted_when_asked_not_to():
+    p = StageProfiler()
+    p.enable(count_syncs=False)
+    with warnings.catch_warnings(record=True) as shown:
+        warnings.simplefilter("always")
+        with p.stage("s"):
+            warnings.warn(SYNC_WARNING)
+    assert p.chunks[0]["stages"]["s"]["counts"] == {} and len(shown) == 1
+
+
+def test_enable_is_idempotent_and_keeps_what_was_recorded():
+    p = StageProfiler(enabled=False)
+    p.enable()
+    p.next_chunk()
+    with p.stage("a"):
+        p.count("frames")
+    p.enable()
+    p.enable()
+    assert p.enabled and p.chunks[0]["stages"]["a"]["calls"] == 1
+    p.disable()
+    p.disable()
+    assert not p.enabled and len(p.chunks) == 1
+    p.enable()
+    with p.stage("a"):
+        pass
+    assert p.chunks[0]["stages"]["a"]["calls"] == 2
+    p.reset()
+    assert p.chunks == [] and p.summary() == {}
 
 
 def test_system_has_a_profiler():
@@ -70,15 +167,6 @@ def test_system_has_a_profiler():
     cfg = tum3_config().replace(capacity=CapacityConfig(
         max_keyframes=8, max_points=64, max_features=32, local_ba_points=32))
     for chunked in (True, False):
-        assert isinstance(System(cfg, chunked=chunked, device="cpu").profiler, StageProfiler)
-
-
-@pytest.mark.cuda
-def test_sync_waits_for_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    x = torch.ones(2048, 2048, device="cuda")
-    p = StageProfiler()
-    with p.stage("matmul"):
-        y = p.sync({"y": x @ x})
-    assert torch.cuda.current_stream().query() and y["y"].shape == x.shape
+        sysm = System(cfg, chunked=chunked, device="cpu")
+        assert sysm.profiler is TRACER and isinstance(TRACER, StageProfiler)
+    assert not TRACER.enabled
